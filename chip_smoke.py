@@ -16,12 +16,25 @@ Phases (any failed check raises, and the script exits non-zero):
      mixing configuration): set_b, invert, 10 BDF2 steps.  Every state
      is finite, every solve stays under its iteration cap, every kernel
      of the path launched and no plain version ran.
+  3b. probes vs plain: K3 stream_saddle and K1 pinned on the slice's
+     element tensors in f32 and f64, K4 stream_probe in f32 on
+     profile_stream's shapes.  Bars: K1 pinned as phase 3; K3 and K4
+     2e-6 (f32) / 1e-12 (f64) of each lane's sum of |values|.
   5. golden: the bowl2D mixing run in f32 on the card, to the time of
      tests/data/bowl_mixing_2d.npz (t = 5.1: 51 BDF2 steps), FE-integral
      relative L2 below 1e-3 for b and u.
+  6. tools: nupgcm_tpu_torch.tools' profile_matvec, profile_stream (at
+     39 MB, inside the L2, and 299 MB), profile_step and sweep_inner
+     (six budgets, 5 steps each) on the slice model.  Every result is
+     finite, every solve stays under its cap, every probe launched and
+     no plain version ran.
+  7. trace: 5 steps under utils.timing.device_trace (Chrome trace in
+     out/trace/); the device-busy share and the top kernels by device
+     time.
 
-The line before the last is a JSON object {"kernels": [...]}; the last
-line is {"ok": true, "device": {...}}.
+Phases run in the order 1, 2, 4a (build the slice), 3, 3b, 4b (step
+it), 6, 7, 5.  The last three lines are the card's name and power
+limit, a JSON object {"kernels": [...]}, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -36,8 +49,18 @@ import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parent
 REPLACES = {"saddle_matvec": "nupgcm_tpu/ops/window.py:769",
-            "scalar_matvec": "nupgcm_tpu/ops/window.py:865"}
-SOURCE = "nupgcm_tpu_torch/csrc/element_matvec.cu"
+            "scalar_matvec": "nupgcm_tpu/ops/window.py:865",
+            "saddle_matvec[pinned]": "tools/profile_matvec.py:203",
+            "stream_saddle": "tools/profile_matvec.py:174",
+            "stream_probe": "tools/profile_stream.py:75"}
+SOURCES = {"saddle_matvec": "nupgcm_tpu_torch/csrc/element_matvec.cu",
+           "scalar_matvec": "nupgcm_tpu_torch/csrc/element_matvec.cu",
+           "saddle_matvec[pinned]": "nupgcm_tpu_torch/csrc/element_matvec.cu",
+           "stream_saddle": "nupgcm_tpu_torch/csrc/stream_probe.cu",
+           "stream_probe": "nupgcm_tpu_torch/csrc/stream_probe.cu"}
+BARS = {"float32": 2e-6, "float64": 1e-12}
+STEP_COUNTERS = ("saddle_full", "saddle_full_pp", "saddle_uu", "saddle_up", "scalar")
+STREAM_SHAPES = ((3, 128, False), (1, 512, True))  # K4 cases of profile_stream
 
 
 def check(cond, msg):
@@ -50,28 +73,6 @@ def card() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
-
-
-def mixing_setup(npg, mesh, device, dtype, t_stop=None, **model_kw):
-    """The bench.py bowl-mixing configuration (dt = 1e-4 mu/(alpha eps)^2)."""
-    eps, alpha, mu = 2e-1, 0.5, 1e1
-    params = npg.Parameters(
-        eps=eps, alpha=alpha, mu_rho=mu, N2=1 / alpha,
-        f=lambda x: 1.0 + 0.5 * x[1],
-        H=lambda x: alpha * (1 - x[0] ** 2 - x[1] ** 2))
-    kap = lambda x: 1e-2 + np.exp(
-        -(x[2] + alpha * (1 - x[0] ** 2 - x[1] ** 2)) / (0.1 * alpha))
-    forc = npg.Forcings(nu=1.0, kappa_h=kap, kappa_v=kap, tau_x=0.0, tau_y=0.0,
-                        b_surface_bc=npg.SurfaceDirichletBC(0.0))
-    spaces = npg.Spaces(
-        mesh, u_diri_tags=["bottom", "coastline", "surface"],
-        u_diri_vals=[(0, 0, 0)] * 3,
-        u_diri_masks=[(True, True, True), (True, True, True), (False, False, True)],
-        b_diri_tags=["coastline", "surface"], b_diri_vals=[0.0, 0.0])
-    fe = npg.FEData(mesh, spaces)
-    dt = 1e-4 * mu / (alpha * eps) ** 2
-    ts = npg.BDF2(t_start=0, t_stop=50 * dt if t_stop is None else t_stop, dt=dt)
-    return npg.PGModel(fe, params, forc, ts, dtype=dtype, device=device, **model_kw)
 
 
 def median_ms(fn, reps=30, warmup=5):
@@ -154,6 +155,158 @@ def phase_kernels(model, K, rng, card_name):
     return results
 
 
+def probe_check(name, dtype, out, ref, scale, scale_name, card_name, kfn, pfn):
+    """Kernel output vs plain, bar BARS[dtype] of ``scale`` (per entry,
+    or one number); prints both times for f32."""
+    import torch
+
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out).all()), f"{name}: non-finite output")
+    err = float((out - ref).abs().max())
+    rel = float(((out - ref).abs() / scale.clamp_min(1e-300)).max())
+    bar = BARS[str(dtype)[6:]]
+    print(f"[probes] {name:22s} {str(dtype)[6:]}: max|o-o_plain| = {err:.3e} = "
+          f"{rel:.2e} {scale_name} (bar {bar:.0e})", flush=True)
+    check(rel <= bar, f"{name} {dtype}: kernel disagrees with plain")
+    rec = {"name": name, "entry": name, "max_abs_err": err}
+    if dtype == torch.float32:
+        rec["ms"], rec["plain_ms"] = median_ms(kfn), median_ms(pfn)
+        print(f"[probes] {name:22s} f32: {rec['ms']:.4f} ms kernel, "
+              f"{rec['plain_ms']:.4f} ms plain ({card_name})", flush=True)
+    return rec
+
+
+def phase_probes(model, K, rng, card_name):
+    """K3, K1 pinned and K4 vs their plain versions on the card."""
+    import torch
+
+    o, c, fe = model.ops, model.const, model.fe
+    n = fe.spaces.u_space.ndof
+    results = {}
+    x_np = rng.standard_normal(fe.n_inv)
+    lane_sum = "of the lane's sum of |values|"
+    for dtype in (torch.float32, torch.float64):
+        uu, up, pu = (o[k].to(dtype) for k in ("A_uu_e", "A_up_e", "A_pu_e"))
+        # K3 from a zero carry: the output is 1e-30 times the lane sums
+        carry = torch.zeros((1, K.LANES), dtype=torch.float32, device="cuda")
+        k3 = (uu, up, pu, carry)
+        rec = probe_check("stream_saddle", dtype, K.stream_saddle(*k3),
+                          K.stream_saddle_plain(*k3),
+                          K.stream_saddle_plain(uu.abs(), up.abs(), pu.abs(), carry),
+                          lane_sum, card_name, lambda: K.stream_saddle(*k3),
+                          lambda: K.stream_saddle_plain(*k3))
+        if "ms" in rec:
+            results["stream_saddle"] = dict(rec, counter="stream_saddle")
+        # K1 pinned: the first 128 cells' tensors, every cell's dof tables
+        pin = min(uu.shape[0], K.LANES)
+        x = torch.as_tensor(x_np, dtype=dtype, device="cuda")
+        k1 = (uu[:pin], up[:pin], pu[:pin], c["cd_u"], c["cd_p"], x, n)
+        kfn = lambda: K.saddle_matvec(*k1[:3], None, *k1[3:6], "full", n, pinned=True)
+        y0 = K.saddle_matvec_pinned_plain(*k1)
+        rec = probe_check("saddle_matvec[pinned]", dtype, kfn(), y0, y0.abs().max(),
+                          "max|y|", card_name, kfn, lambda: K.saddle_matvec_pinned_plain(*k1))
+        if "ms" in rec:
+            results["saddle_matvec[pinned]"] = dict(rec, counter="saddle_full_pinned")
+    # K4 on profile_stream's shapes: 1140 x 8576 cells
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for n_inputs, B, with_idx in STREAM_SHAPES:
+        nb = 8576 // B
+        rows = (900, 120, 120) if n_inputs == 3 else (1140,)
+        parts = [torch.randn((nb, r * B // K.LANES, K.LANES), generator=gen, device="cuda")
+                 for r in rows]
+        idx = ([torch.randint(-9, 10, (nb, 1, 1280), generator=gen, device="cuda",
+                              dtype=torch.int32) for _ in range(8)] if with_idx else None)
+        w0 = torch.full((nb,), 7, dtype=torch.int32, device="cuda")
+        out, chk = K.stream_probe(parts, w0, idx)
+        ref, chk0 = K.stream_probe_plain(parts, w0, idx)
+        scale, _ = K.stream_probe_plain([p.abs() for p in parts], w0.abs())
+        name = f"stream_probe s{n_inputs}{'idx' if with_idx else ''}_B{B}"
+        rec = probe_check(name, torch.float32, out, ref, scale, lane_sum, card_name,
+                          lambda: K.stream_probe(parts, w0, idx),
+                          lambda: K.stream_probe_plain(parts, w0, idx))
+        if with_idx:
+            check(int(chk) == int(chk0), f"{name}: index checksum {int(chk)} != {int(chk0)}")
+        if "stream_probe" not in results:  # the TPU layout, three parts
+            results["stream_probe"] = dict(rec, name="stream_probe", entry="stream_probe",
+                                           counter="stream_probe")
+    return results
+
+
+def phase_tools(model, K, card_name):
+    """The measurement tools on the slice model; returns the launches."""
+    import torch
+
+    from nupgcm_tpu_torch.tools import (profile_matvec, profile_stream, profile_step,
+                                        sweep_inner)
+
+    tag = lambda *a: print("[tools]", *a, flush=True)
+    torch.cuda.synchronize()
+    K.reset_counts()
+    t0 = time.perf_counter()
+    pm = profile_matvec.run(model=model, log=tag)
+    streams = [profile_stream.run(1140, ncell, 50, "cuda", log=tag) for ncell in (8576, 65536)]
+    ps = profile_step.run(model=model, log=tag)
+    sw = sweep_inner.run(model=model, steps=5, log=tag)
+    torch.cuda.synchronize()
+    launches, plain = dict(K.launches), dict(K.plain_calls)
+    print(f"[tools] {time.perf_counter() - t0:.2f} s; launches {launches}; plain calls "
+          f"{plain} ({card_name})", flush=True)
+    nums = [*pm["ms"].values(), *ps["ms"].values()]
+    nums += [v for r in streams for cfg in r["configs"].values() for v in cfg.values()
+             if v is not None]
+    nums += [r[k] for r in sw for k in ("steps_per_s", "evo_it", "inv_it", "inv_res", "b_max")]
+    check(bool(np.isfinite(nums).all()), "tools: a non-finite result")
+    check(all(r["evo_it_max"] < model.evo_opts["itmax"]
+              and r["inv_it_max"] < model.inv_opts["itmax"] for r in sw),
+          "tools: a solve hit its iteration cap")
+    for k in ("stream_saddle", "stream_probe", "saddle_full_pinned", "saddle_full",
+              "saddle_uu"):
+        check(launches[k] > 0, f"tools: {k} never launched")
+    check(all(v == 0 for v in plain.values()), f"tools: a plain version ran on the card: {plain}")
+    return launches
+
+
+def phase_trace(model, state, card_name):
+    """5 steps unprofiled, then 5 under device_trace: busy share and
+    the top kernels by device time."""
+    import torch
+
+    from nupgcm_tpu_torch.utils import timing
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        state, _ = model.step(state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with timing.device_trace(str(ROOT / "out" / "trace")) as path:
+        t0 = time.perf_counter()
+        for _ in range(5):
+            state, _ = model.step(state)
+        torch.cuda.synchronize()
+        wall_prof = time.perf_counter() - t0
+    summ = timing.trace_summary(path)
+    busy = summ["busy_us"] / 1e6
+    check(busy > 0, "trace: the profiler saw no device work")
+    print(f"[trace] 5 steps: device busy {busy * 1e3:.3f} ms of {wall_prof * 1e3:.3f} ms "
+          f"profiled wall ({100 * busy / wall_prof:.1f}%), of {wall * 1e3:.3f} ms unprofiled "
+          f"wall ({100 * busy / wall:.1f}%); trace {pathlib.Path(path).relative_to(ROOT)} "
+          f"({card_name})", flush=True)
+    total = sum(us for _, us in summ["by_name"].values())
+    for name, (calls, us) in list(summ["by_name"].items())[:10]:
+        print(f"[trace] {us / 1e3:9.3f} ms {100 * us / total:5.1f}% {calls:6d} calls  "
+              f"{name[:90]}", flush=True)
+    return state
+
+
+def emit_tail(kernels, name_limit, kind, count):
+    """The run's last three lines: the card, the kernels, the verdict."""
+    print(name_limit)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": count}}))
+
+
 def fe_rel_l2(fe, vals, ref, cell_dofs, phi):
     """FE-integral relative L2 (squared-norm ratio), the reference's
     acceptance metric (tests/_helpers.py::integral_rel_l2)."""
@@ -178,6 +331,7 @@ def main():
     import nupgcm_tpu_torch as npg
     from nupgcm_tpu_torch.ops import build
     from nupgcm_tpu_torch.ops import kernels as K
+    from nupgcm_tpu_torch.tools._common import initial_b, mixing_setup
 
     check(pathlib.Path(npg.__file__).resolve().is_relative_to(ROOT),
           f"nupgcm_tpu_torch imported from outside {ROOT}")
@@ -191,7 +345,8 @@ def main():
     # 2. build
     t0 = time.perf_counter()
     build.load()
-    print(f"[build] {SOURCE} -> {build.library_path().relative_to(ROOT)} in "
+    print(f"[build] {', '.join(sorted(set(SOURCES.values())))} -> "
+          f"{build.library_path().relative_to(ROOT)} in "
           f"{time.perf_counter() - t0:.2f} s (nvcc {build.build_seconds} s)", flush=True)
     for line in (build.build_log or "").splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
@@ -200,7 +355,7 @@ def main():
     # 4a. the slice model (its element tensors feed phase 3)
     t0 = time.perf_counter()
     mesh = npg.generators.bowl3D(0.08, 0.5, nz=9)
-    model = mixing_setup(npg, mesh, "cuda", torch.float32)
+    model = mixing_setup(mesh, "cuda", torch.float32)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     fe = model.fe
@@ -213,13 +368,15 @@ def main():
     # 3. kernels vs plain on the slice's tensors
     results = phase_kernels(model, K, np.random.default_rng(0), name_limit)
 
+    # 3b. the measurement probes vs plain
+    probes = phase_probes(model, K, np.random.default_rng(1), name_limit)
+
     # 4b. drive the main path through the kernels
-    bic = lambda x: 0.1 * np.exp(-(x[2] + 0.5 * (1 - x[0] ** 2 - x[1] ** 2)) / 0.05)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     K.reset_counts()
     t0 = time.perf_counter()
-    state = model.invert(model.set_b(model.rest_state(), bic))
+    state = model.invert(model.set_b(model.rest_state(), initial_b))
     torch.cuda.synchronize()
     t_inv = time.perf_counter() - t0
     check(bool(torch.isfinite(state.u).all() and torch.isfinite(state.p).all()),
@@ -246,15 +403,25 @@ def main():
     print(f"[slice] 10 steps in {t_steps:.3f} s = {10 / t_steps:.3f} steps/s; "
           f"peak device memory {peak / 2**20:.1f} MiB; launches {launches}; "
           f"plain calls {plain} ({name_limit})", flush=True)
-    check(all(n > 0 for n in launches.values()), f"a kernel of the path never launched: {launches}")
+    check(all(launches[k] > 0 for k in STEP_COUNTERS),
+          f"a kernel of the path never launched: {launches}")
     check(all(n == 0 for n in plain.values()), f"a plain version ran on the card: {plain}")
+
+    for r in results.values():
+        r["launches"] = launches[r["counter"]]
+
+    # 6. the measurement tools, 7. the trace
+    tool_launches = phase_tools(model, K, name_limit)
+    for r in probes.values():
+        r["launches"] = tool_launches[r["counter"]]
+    state = phase_trace(model, state, name_limit)
     del model, state
     torch.cuda.empty_cache()
 
     # 5. f32 golden on the card
     t0 = time.perf_counter()
     ref = np.load(ROOT / "tests" / "data" / "bowl_mixing_2d.npz")
-    golden = mixing_setup(npg, npg.generators.bowl2D(0.1, 0.5), "cuda", torch.float32,
+    golden = mixing_setup(npg.generators.bowl2D(0.1, 0.5), "cuda", torch.float32,
                           t_stop=2 * float(ref["t"]))
     n_steps = round(float(ref["t"]) / golden.ts.dt)
     st = golden.run(golden.rest_state(), n_info=0, max_steps=n_steps)
@@ -275,15 +442,12 @@ def main():
     check(eb < 1e-3 and eu < 1e-3, "golden run disagrees with the golden file")
 
     check("jax" not in sys.modules, "JAX was imported")
-    print(json.dumps({"kernels": [
-        {"name": r["name"], "route": "cuda", "source": SOURCE,
-         "replaces": REPLACES[r["entry"]],
-         "launches": launches[r["counter"]],
+    kernels = [
+        {"name": r["name"], "route": "cuda", "source": SOURCES[r["entry"]],
+         "replaces": REPLACES[r["entry"]], "launches": r["launches"],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"]}
-        for r in results.values()]}))
-    print(name_limit)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
-                                             "count": torch.cuda.device_count()}}))
+        for r in (*results.values(), *probes.values())]
+    emit_tail(kernels, name_limit, kind, torch.cuda.device_count())
 
 
 if __name__ == "__main__":

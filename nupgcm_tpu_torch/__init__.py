@@ -26,11 +26,12 @@ from .models.config import (
 from .models.fedata import FEData, Spaces
 from .models.model import BlowUpError, PGModel, State
 from .models.timesteppers import BDF1, BDF2
+from .utils.timing import memory_status, print_memory_status
 
 __version__ = "0.1.0"
 __all__ = [
     "Parameters", "Forcings", "SurfaceDirichletBC", "SurfaceFluxBC",
     "ConvectionParameterization", "EddyParameterization",
     "Spaces", "FEData", "PGModel", "State", "BlowUpError",
-    "BDF1", "BDF2", "Mesh", "generators",
+    "BDF1", "BDF2", "Mesh", "generators", "memory_status", "print_memory_status",
 ]

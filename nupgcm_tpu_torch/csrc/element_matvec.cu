@@ -30,12 +30,22 @@
 // zero tensors and add exact zeros.  The atomics sum in a different
 // order on every run, so results agree with a sequential sum only to
 // rounding.
+//
+// Pinned probe (saddle_kernel<T, true>): every cell c reads the tensors
+// of cell c mod 128 (tensors are given for the first min(nc, 128) cells
+// only) while its gathers and scatters use its own dof tables.  It
+// replaces the "compute" variant of tools/profile_matvec.py:200-216,
+// where a patched BlockSpec pins every grid step to block 0's tensors:
+// the tensors then stay in cache and the time left is compute, gathers
+// and atomics.  The production instantiation (Pinned = false) compiles
+// to the same code as before the flag existed.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr long long kPinCells = 128;  // one TPU grid block of cells
 
 enum Mode { kFull = 0, kFullPP = 1, kUU = 2, kUP = 3 };
 
@@ -71,7 +81,7 @@ __device__ __forceinline__ T dot_p(const T* __restrict__ a,
 //   kFullPP y = [uu up; pu pp] x     (rows: 3*nlu + nlp per cell)
 //   kUU     yu = uu xu               (rows: 3*nlu per cell)
 //   kUP     yu = up xp               (rows: 3*nlu per cell)
-template <typename T>
+template <typename T, bool Pinned>
 __global__ void __launch_bounds__(kThreads)
 saddle_kernel(const T* __restrict__ uu, const T* __restrict__ up,
               const T* __restrict__ pu, const T* __restrict__ pp,
@@ -85,17 +95,18 @@ saddle_kernel(const T* __restrict__ uu, const T* __restrict__ up,
   if (t >= nc * rows) return;
   const long long c = t / rows;
   const int r = (int)(t - c * rows);
+  const long long ct = Pinned ? c % kPinCells : c;  // whose tensors
   const int* cu = cd_u + c * nlu;
   const int* cp = cd_p + c * nlp;
   if (r < nlu3) {
     T acc = T(0);
-    if (mode != kUP) acc += dot_u(uu + (c * nlu3 + r) * nlu3, cu, nlu, xu);
-    if (mode != kUU) acc += dot_p(up + (c * nlu3 + r) * nlp, cp, nlp, xp);
+    if (mode != kUP) acc += dot_u(uu + (ct * nlu3 + r) * nlu3, cu, nlu, xu);
+    if (mode != kUU) acc += dot_p(up + (ct * nlu3 + r) * nlp, cp, nlp, xp);
     atomicAdd(yu + 3LL * cu[r / 3] + r % 3, acc);
   } else {
     const int k = r - nlu3;
-    T acc = dot_u(pu + (c * nlp + k) * nlu3, cu, nlu, xu);
-    if (mode == kFullPP) acc += dot_p(pp + (c * nlp + k) * nlp, cp, nlp, xp);
+    T acc = dot_u(pu + (ct * nlp + k) * nlu3, cu, nlu, xu);
+    if (mode == kFullPP) acc += dot_p(pp + (ct * nlp + k) * nlp, cp, nlp, xp);
     atomicAdd(yp + cp[k], acc);
   }
 }
@@ -122,10 +133,12 @@ template <typename T>
 int launch_saddle(const void* uu, const void* up, const void* pu,
                   const void* pp, const void* cd_u, const void* cd_p,
                   const void* xu, const void* xp, void* yu, void* yp,
-                  long long nc, int nlu, int nlp, int mode, void* stream) {
+                  long long nc, int nlu, int nlp, int mode, int pinned,
+                  void* stream) {
   const int rows = (mode == kFull || mode == kFullPP) ? 3 * nlu + nlp : 3 * nlu;
   if (nc * rows == 0) return 0;  // a zero-block grid is a launch error
-  saddle_kernel<T><<<n_blocks(nc * rows), kThreads, 0, (cudaStream_t)stream>>>(
+  auto kernel = pinned ? saddle_kernel<T, true> : saddle_kernel<T, false>;
+  kernel<<<n_blocks(nc * rows), kThreads, 0, (cudaStream_t)stream>>>(
       (const T*)uu, (const T*)up, (const T*)pu, (const T*)pp,
       (const int*)cd_u, (const int*)cd_p, (const T*)xu, (const T*)xp,
       (T*)yu, (T*)yp, nc, nlu, nlp, mode);
@@ -152,18 +165,18 @@ int nupgcm_saddle_matvec_f32(const void* uu, const void* up, const void* pu,
                              const void* pp, const void* cd_u, const void* cd_p,
                              const void* xu, const void* xp, void* yu, void* yp,
                              long long nc, int nlu, int nlp, int mode,
-                             void* stream) {
+                             int pinned, void* stream) {
   return launch_saddle<float>(uu, up, pu, pp, cd_u, cd_p, xu, xp, yu, yp, nc,
-                              nlu, nlp, mode, stream);
+                              nlu, nlp, mode, pinned, stream);
 }
 
 int nupgcm_saddle_matvec_f64(const void* uu, const void* up, const void* pu,
                              const void* pp, const void* cd_u, const void* cd_p,
                              const void* xu, const void* xp, void* yu, void* yp,
                              long long nc, int nlu, int nlp, int mode,
-                             void* stream) {
+                             int pinned, void* stream) {
   return launch_saddle<double>(uu, up, pu, pp, cd_u, cd_p, xu, xp, yu, yp, nc,
-                               nlu, nlp, mode, stream);
+                               nlu, nlp, mode, pinned, stream);
 }
 
 int nupgcm_scalar_matvec_f32(const void* ae, const void* cd, const void* x,

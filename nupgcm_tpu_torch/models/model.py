@@ -19,8 +19,7 @@ operator application goes through ``ops/kernels.py``: the CUDA kernels
 on a CUDA device, their plain versions on the CPU.
 
 Not ported yet: the convection and eddy closures, the u-block two-grid
-(``saddle_coarse=False``), ``refresh_precond``, ``retune`` and
-``multi_step``.
+(``saddle_coarse=False``) and ``refresh_precond``.
 """
 
 from __future__ import annotations
@@ -50,6 +49,11 @@ from .timesteppers import BDF2
 
 class BlowUpError(RuntimeError):
     pass
+
+
+# per-step diagnostics of ``PGModel.step`` (the JAX step's aux keys)
+AUX_KEYS = ("evo_iters", "evo_res", "inv_iters", "inv_res", "u_max", "b_max",
+            "b_free_min", "b_free_max", "db_dt_max", "cfl_dt")
 
 
 def _aggregate_vertices(cd_p: np.ndarray, nv: int, max_agg: int):
@@ -941,11 +945,64 @@ class PGModel:
             torch.where(freeb, torch.abs(b_new - state.b), 0.0).max() / dt_,
             self.const["h_cells"].min() / torch.clamp(u_max, min=1e-30),
         ]).tolist()
-        aux = dict(zip(("u_max", "b_max", "b_free_min", "b_free_max",
-                        "db_dt_max", "cfl_dt"), diag))
+        aux = dict(zip(AUX_KEYS[4:], diag))
         aux.update(evo_iters=evo_stats.iterations, evo_res=evo_stats.residual,
                    inv_iters=inv_stats.iterations, inv_res=inv_stats.residual)
         return new_state, aux
+
+    def multi_step(self, state: State, n: int):
+        """``n`` timesteps: (state, auxs), ``auxs[key]`` a length-n numpy
+        array of the per-step aux values, as the JAX package's
+        ``multi_step`` stacks them (a ``lax.scan``).  Here it is a loop
+        over ``step``; capturing it in a CUDA graph is later work."""
+        auxs = {k: [] for k in AUX_KEYS}
+        for _ in range(n):
+            state, aux = self.step(state)
+            for k in AUX_KEYS:
+                auxs[k].append(aux[k])
+        return state, {k: np.asarray(v) for k, v in auxs.items()}
+
+    def retune(
+        self,
+        saddle_coarse_inner: Optional[int] = None,
+        inner_iters_u: Optional[int] = None,
+        inner_iters_p: Optional[int] = None,
+        cond_ratio: Optional[float] = None,
+        inv_rtol: Optional[float] = None,
+        inv_atol: Optional[float] = None,
+        inv_memory: Optional[int] = None,
+        evo_rtol: Optional[float] = None,
+        evo_atol: Optional[float] = None,
+    ):
+        """Re-tune the solver budgets without re-assembling operators;
+        returns ``self``.  Keywords and semantics as the JAX package's
+        ``retune``: None keeps a budget, and a new ``inv_memory`` also
+        sets the FGMRES cap to 25 restart cycles.
+
+        The JAX model rebuilds its jitted closures here.  This port
+        builds the inversion preconditioner inside every solve
+        (``_make_inv_precond``, ``_saddle_coarse_solver``) from these
+        attributes, so setting them is all a retune does: ``self.ops``
+        is never touched and nothing is rebuilt."""
+        if saddle_coarse_inner is not None:
+            self.saddle_coarse_inner = saddle_coarse_inner
+        iu, ip = self.inner_iters
+        if inner_iters_u is not None:
+            iu = inner_iters_u
+        if inner_iters_p is not None:
+            ip = inner_iters_p
+        self.inner_iters = (iu, ip)
+        if cond_ratio is not None:
+            self.cond_ratio = cond_ratio
+        for k, v in (("rtol", inv_rtol), ("atol", inv_atol), ("m", inv_memory)):
+            if v is not None:
+                self.inv_opts[k] = v
+        if inv_memory is not None:
+            self.inv_opts["itmax"] = 25 * inv_memory
+        for k, v in (("rtol", evo_rtol), ("atol", evo_atol)):
+            if v is not None:
+                self.evo_opts[k] = v
+        return self
 
     def rest_state(self) -> State:
         sp = self.fe.spaces

@@ -1,10 +1,12 @@
-"""Build and load the CUDA element-matvec library (nvcc + ctypes).
+"""Build and load the CUDA kernel library (nvcc + ctypes).
 
-``load()`` compiles ``csrc/element_matvec.cu`` for sm_90a into
-``nupgcm_tpu_torch/_build/`` at first use (the file name carries a hash
-of the source, so an edited source is rebuilt) and binds its plain C
-interface with ctypes.  A missing ``nvcc`` or a failed compile raises
-``RuntimeError`` with the compiler's output: there is no fallback.
+``load()`` compiles every ``csrc/*.cu`` for sm_90a -- one ``nvcc -c``
+per source, all started together, then one link -- into a shared
+library in ``nupgcm_tpu_torch/_build/`` at first use (the file name
+carries a hash of all the sources, so an edited source is rebuilt) and
+binds its plain C interface with ctypes.  A missing ``nvcc`` or a
+failed compile raises ``RuntimeError`` with the compiler's output:
+there is no fallback.
 """
 
 from __future__ import annotations
@@ -18,11 +20,11 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "element_matvec.cu"
+SOURCES = sorted((_PKG / "csrc").glob("*.cu"))
 BUILD_DIR = _PKG / "_build"
 NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib = None
 # what the last compile in this process printed (ptxas register and
@@ -40,30 +42,56 @@ def nvcc_path() -> str:
             return cand
     raise RuntimeError(
         f"nvcc not found (looked in $CUDA_HOME/bin, $PATH and {NVCC_DEFAULT}): "
-        "the CUDA element-matvec kernels are built "
-        f"from {SOURCE} and need the CUDA toolkit")
+        "the CUDA kernels are built from "
+        f"{', '.join(s.name for s in SOURCES)} and need the CUDA toolkit")
 
 
 def library_path() -> Path:
-    tag = hashlib.sha1(SOURCE.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"libelement_matvec_{tag}.so"
+    h = hashlib.sha1()
+    for src in SOURCES:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libnupgcm_kernels_{h.hexdigest()[:12]}.so"
+
+
+def _check_run(cmd, proc, out: str) -> None:
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed with exit code {proc.returncode}:\n{' '.join(cmd)}\n{out}")
 
 
 def compile_library(path: Path) -> None:
     global build_log, build_seconds
     nvcc = nvcc_path()
     path.parent.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    tag = f"{path.stem}.{os.getpid()}"
+    objs = [path.with_name(f"{tag}.{src.stem}.o") for src in SOURCES]
+    tmp = path.with_name(f"{tag}.so.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n{' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, path)  # atomic: a concurrent build never sees a partial file
+    jobs = []
+    for src, obj in zip(SOURCES, objs):
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT, text=True)))
+    logs = []
+    try:
+        for cmd, proc in jobs:
+            out, _ = proc.communicate()
+            _check_run(cmd, proc, out)
+            logs.append(out)
+        cmd = [nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        _check_run(cmd, proc, proc.stdout + proc.stderr)
+        os.replace(tmp, path)  # atomic: a concurrent build never sees a partial file
+    finally:
+        for cmd, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
+    build_log = "".join(logs)
 
 
 def load():
@@ -78,12 +106,18 @@ def load():
     vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     for name in ("nupgcm_saddle_matvec_f32", "nupgcm_saddle_matvec_f64"):
         fn = getattr(lib, name)
-        fn.argtypes = [vp] * 10 + [ll, i, i, i, vp]
+        fn.argtypes = [vp] * 10 + [ll, i, i, i, i, vp]
         fn.restype = i
     for name in ("nupgcm_scalar_matvec_f32", "nupgcm_scalar_matvec_f64"):
         fn = getattr(lib, name)
         fn.argtypes = [vp] * 4 + [ll, i, vp]
         fn.restype = i
+    for name in ("nupgcm_stream_saddle_f32", "nupgcm_stream_saddle_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [vp] * 6 + [ll, i, i, i, vp]
+        fn.restype = i
+    lib.nupgcm_stream_probe_f32.argtypes = [vp] * 3 + [i] * 3 + [vp] * 9 + [i, vp, vp, ll, vp]
+    lib.nupgcm_stream_probe_f32.restype = i
     lib.nupgcm_error_string.argtypes = [i]
     lib.nupgcm_error_string.restype = ctypes.c_char_p
     _lib = lib

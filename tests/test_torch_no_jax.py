@@ -10,6 +10,9 @@ def test_port_imports_without_jax():
             "import nupgcm_tpu_torch\n"
             "from nupgcm_tpu_torch.models import model\n"
             "from nupgcm_tpu_torch.ops import build, kernels\n"
+            "from nupgcm_tpu_torch.tools import (_common, profile_matvec, profile_step,\n"
+            "                                    profile_stream, sweep_inner)\n"
+            "from nupgcm_tpu_torch.utils import timing\n"
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
             "assert 'nupgcm_tpu' not in sys.modules\n")
     root = pathlib.Path(__file__).resolve().parents[1]
