@@ -11,7 +11,8 @@ Phases (any failed check raises, and the script exits non-zero):
      h = 0.08 bowl3D model, against its plain PyTorch version, in f32
      (bar 2e-6 max|y|) and f64 (bar 1e-12 max|y|); the atomics sum in
      a different order on every run.  Times per application (CUDA
-     events, median of 30 after warm-up).
+     events around 20 calls in a row, median of 10 such batches after
+     warm-up).
   4. slice: PGModel on bowl3D(0.08, 0.5, nz=9) in f32 (the bench.py
      mixing configuration): set_b, invert, 10 BDF2 steps.  Every state
      is finite, every solve stays under its iteration cap, every kernel
@@ -31,19 +32,54 @@ Phases (any failed check raises, and the script exits non-zero):
   7. trace: 5 steps under utils.timing.device_trace (Chrome trace in
      out/trace/); the device-busy share and the top kernels by device
      time.
+  8. full physics (convection + eddy closures, wind, refresh_precond):
+     8a. tools.northstar.build_model("full") on its generated
+         bowl3D(0.1, 0.5, nz=7), in f32 and then in f64:
+         run(max_steps=30, n_precond_refresh=10) (an eddy rebuild inside
+         steps 10, 20 and 30, each followed by a refresh; both seen in
+         the operators), every solve under its cap, and the state at
+         step 30 against tests/data/bowl3d_full_30.npz (JAX, CPU, f64,
+         the same run; FE-integral relative L2).  f64 is held to 1e-3
+         for u and b, and a checkpoint at step 15 resumed to 30 to
+         within 1e-4 of max|u| and max|b| of the straight run (the
+         atomics sum in another order on every run, and the closures'
+         sharp switches amplify such last-bit differences).  f32 prints
+         its distance without a bar: the same amplification carries the
+         packages' tolerance-level differences to several 1e-2 of
+         max|b| in 30 steps even in f64, and f32 rounding adds to it.  A refresh
+         after each rebuild, not after 25 steps: on the preconditioner
+         of the build-time viscosity FGMRES reaches its cap of 500 in
+         the steps after the step-20 rebuild, in f32 and f64 (python
+         tests/test_torch_production.py counts f32).
+     8b. tools.production.build_model(0.04) in f32 (reduced from the
+         tool's h = 0.02 to fit this script's time limit): every kernel
+         mode against its plain version on its tensors, the evolution
+         matrix with the convective Kv (P1 buoyancy, nl = 4), bars of
+         phase 3; then run(max_steps=26, n_precond_refresh=25), whose
+         FGMRES stalls from the first step in both packages (reported).
+     Both: every state finite, every solve under its cap (8b: CG only),
+     every kernel of the path launched, no plain version ran.
+
+Phases 3 and 8b also time each kernel mode beside one library call
+that computes the same function: cuSPARSE through torch.sparse.mm on
+the operator assembled to CSR here (never in the port).  Each kernel's
+bound is the larger of its bytes (each input read once, each output
+written once) over 3.35 TB/s and its multiply-adds over 67 TFLOP/s
+(H100 SXM f32 without tensor cores).
 
 Phases run in the order 1, 2, 4a (build the slice), 3, 3b, 4b (step
-it), 6, 7, 5.  The last three lines are the card's name and power
-limit, a JSON object {"kernels": [...]}, and {"ok": true, "device": {...}}.
+it), 6, 7, 5, 8a, 8b.  The last three lines are the card's name and
+power limit, a JSON object {"kernels": [...]}, and
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import json
 import pathlib
-import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -59,6 +95,8 @@ SOURCES = {"saddle_matvec": "nupgcm_tpu_torch/csrc/element_matvec.cu",
            "stream_saddle": "nupgcm_tpu_torch/csrc/stream_probe.cu",
            "stream_probe": "nupgcm_tpu_torch/csrc/stream_probe.cu"}
 BARS = {"float32": 2e-6, "float64": 1e-12}
+F32_FLOP_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
+RESUME_BAR = 1e-4          # phase 8a (f64), relative to max|u| and max|b|
 STEP_COUNTERS = ("saddle_full", "saddle_full_pp", "saddle_uu", "saddle_up", "scalar")
 STREAM_SHAPES = ((3, 128, False), (1, 512, True))  # K4 cases of profile_stream
 
@@ -68,14 +106,10 @@ def check(cond, msg):
         raise RuntimeError(msg)
 
 
-def card() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
-def median_ms(fn, reps=30, warmup=5):
+def median_ms(fn, reps=10, batch=20, warmup=5):
+    """ms per call: CUDA events around ``batch`` calls in a row, the
+    median over ``reps`` batches (the wrapper's host cost included
+    where it outlasts the kernel)."""
     import torch
 
     for _ in range(warmup):
@@ -84,52 +118,107 @@ def median_ms(fn, reps=30, warmup=5):
               for _ in range(reps)]
     for a, b in events:
         a.record()
-        fn()
+        for _ in range(batch):
+            fn()
         b.record()
     torch.cuda.synchronize()
-    return float(np.median([a.elapsed_time(b) for a, b in events]))
+    return float(np.median([a.elapsed_time(b) for a, b in events])) / batch
 
 
-def kernel_cases(model, K):
+def kernel_cases(model, K, Kv_e=None):
     """(entry, kernel fn, plain fn, mode, label, args, len(x), n_u_nodes)
-    for every kernel mode at the slice's shapes."""
+    for every kernel mode at the model's shapes; ``Kv_e`` replaces the
+    static vertical diffusion in the evolution matrix."""
     c, o, sp = model.const, model.ops, model.fe.spaces
     nu, nv = sp.u_space.ndof, sp.p_space.ndof
     theta = 2.0 / 3.0 * float(model.ts.dt) * model.params.a2e2 / model.params.mu_rho
-    evo = o["M_e"] + theta * (o["Kh_e"] + o["Kv_e"])
+    evo = o["M_e"] + theta * (o["Kh_e"] + (o["Kv_e"] if Kv_e is None else Kv_e))
     fine = (c["cd_u"], c["cd_p"])
     vert = (c["cd_p"], c["cd_p"])
     none = (c["cd_p"], c["cd_none"])
     S = ("saddle_matvec", K.saddle_matvec, K.saddle_matvec_plain)
+    coarse = [] if "sc_uu" not in o else [
+        (*S, "uu", "P1 coarse viscous smoother",
+         (o["sc_visc_e"], None, None, None, *none), 3 * nv, nv),
+        (*S, "full_pp", "P1-P1 stabilized coarse saddle",
+         (o["sc_uu"], o["sc_up"], o["sc_pu"], o["sc_pp"], *vert), 4 * nv, nv)]
     return [
         (*S, "full", "P2-P1 inversion operator",
          (o["A_uu_e"], o["A_up_e"], o["A_pu_e"], None, *fine), 3 * nu + sp.n_p, nu),
         (*S, "up", "P2-P1 pressure coupling",
          (None, o["A_up_e"], None, None, *fine), sp.n_p, nu),
+        (*S, "uu", "P2 velocity block",
+         (o["A_uu_e"], None, None, None, c["cd_u"], c["cd_none"]), 3 * nu, nu),
         (*S, "uu", "P2 viscous smoother",
          (o["visc_e"], None, None, None, c["cd_u"], c["cd_none"]), 3 * nu, nu),
-        (*S, "uu", "P1 coarse viscous smoother",
-         (o["sc_visc_e"], None, None, None, *none), 3 * nv, nv),
-        (*S, "full_pp", "P1-P1 stabilized coarse saddle",
-         (o["sc_uu"], o["sc_up"], o["sc_pu"], o["sc_pp"], *vert), 4 * nv, nv),
+        *coarse,
         ("scalar_matvec", K.scalar_matvec, K.scalar_matvec_plain, None,
-         "P2 buoyancy evolution matrix", (evo, c["cd_b"]), sp.n_b, None),
+         f"P{sp.b_order} buoyancy evolution matrix", (evo, c["cd_b"]), sp.n_b, None),
         ("scalar_matvec", K.scalar_matvec, K.scalar_matvec_plain, None,
          "P1 pressure mass", (o["Mp_e"], c["cd_p"]), sp.n_p, None),
     ]
 
 
-def phase_kernels(model, K, rng, card_name):
-    """Kernel vs plain on the card; returns per-(entry, mode) results."""
+def bound(nbytes, flops):
+    """(ms, "bytes" or "operations"): the least time the card could take."""
+    from nupgcm_tpu_torch.tools._common import HBM_BYTES_PER_S
+
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    return 1e3 * max(t_b, t_f), "bytes" if t_b >= t_f else "operations"
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def operator_csr(mode, args, n_x, n_nodes):
+    """The operator of a kernel case assembled to CSR (COO triples
+    summed): the library yardstick's input."""
+    import torch
+
+    if mode is None:  # scalar
+        ae, cd = args
+        cdl = cd.long()
+        nl = cd.shape[1]
+        rows = cdl[:, :, None].expand(-1, nl, nl)
+        cols = cdl[:, None, :].expand(-1, nl, nl)
+        idx, vals, shape = [(rows, cols)], [ae], (n_x, n_x)
+    else:
+        uu, up, pu, pp, cd_u, cd_p = args
+        n3 = 3 * n_nodes
+        gu = (3 * cd_u.long()[:, :, None] + torch.arange(3, device=cd_u.device)).flatten(1)
+        gp = cd_p.long() + (0 if mode == "up" else n3)
+        blocks = {"uu": (uu, gu, gu), "up": (up, gu, gp), "pu": (pu, gp, gu),
+                  "pp": (pp, gp, gp)}
+        used = {"full": ("uu", "up", "pu"), "full_pp": ("uu", "up", "pu", "pp"),
+                "uu": ("uu",), "up": ("up",)}[mode]
+        idx, vals = [], []
+        for k in used:
+            a, r, cc = blocks[k]
+            idx.append((r[:, :, None].expand(a.shape), cc[:, None, :].expand(a.shape)))
+            vals.append(a)
+        shape = (n3 if mode == "up" else n_x, n_x)
+    ind = torch.stack([torch.cat([r.reshape(-1) for r, _ in idx]),
+                       torch.cat([cc.reshape(-1) for _, cc in idx])])
+    with warnings.catch_warnings():  # CSR support is marked beta
+        warnings.simplefilter("ignore", UserWarning)
+        coo = torch.sparse_coo_tensor(ind, torch.cat([v.reshape(-1) for v in vals]), shape)
+        return coo.coalesce().to_sparse_csr()
+
+
+def phase_kernels(model, K, rng, card_name, tag="kernels", Kv_e=None):
+    """Kernel vs plain (and vs the CSR library call) on the card;
+    returns per-(entry, mode) results of each mode's first (largest)
+    case."""
     import torch
 
     results = {}
-    for entry, kfn, pfn, mode, label, args, n_x, n_nodes in kernel_cases(model, K):
+    for entry, kfn, pfn, mode, label, args, n_x, n_nodes in kernel_cases(model, K, Kv_e):
         tail = () if mode is None else (mode, n_nodes)
         x_np = rng.standard_normal(n_x)
         for dtype, bar in ((torch.float32, 2e-6), (torch.float64, 1e-12)):
             a = [t if t is None or not t.is_floating_point() else t.to(dtype) for t in args]
-            x = torch.as_tensor(x_np, dtype=dtype, device="cuda")
+            x = torch.as_tensor(x_np, dtype=dtype, device=model.device)
             y = kfn(*a, x, *tail)
             y0 = pfn(*a, x, *tail)
             torch.cuda.synchronize()
@@ -137,7 +226,7 @@ def phase_kernels(model, K, rng, card_name):
             err = float((y - y0).abs().max())
             scale = float(y0.abs().max())
             name = entry if mode is None else f"{entry}[{mode}]"
-            print(f"[kernels] {name:24s} {label:32s} {str(dtype)[6:]}: "
+            print(f"[{tag}] {name:24s} {label:32s} {str(dtype)[6:]}: "
                   f"max|y-y_plain| = {err:.3e} = {err / scale:.2e} max|y| (bar {bar:.0e})",
                   flush=True)
             check(err <= bar * scale, f"{name} {label} {dtype}: kernel disagrees with plain")
@@ -146,18 +235,41 @@ def phase_kernels(model, K, rng, card_name):
                     "name": name, "max_abs_err": 0.0, "entry": entry,
                     "counter": "scalar" if mode is None else f"saddle_{mode}"})
                 rec["max_abs_err"] = max(rec["max_abs_err"], err)
-                ms = median_ms(lambda: kfn(*a, x, *tail))
+                if "ms" in rec:  # the first case of a mode is its largest
+                    continue
+                csr = operator_csr(mode, a, n_x, n_nodes)
+                lib = lambda: torch.sparse.mm(csr, x[:, None])
+                y_lib = lib()[:, 0]
+                torch.cuda.synchronize()
+                lib_err = float((y_lib - y0).abs().max())
+                check(lib_err <= bar * scale, f"{name} {label}: the CSR yardstick disagrees "
+                      f"with plain ({lib_err:.3e})")
+                # in turns: kernel, library, library, kernel; plain once
+                turns = [median_ms(f) for f in (lambda: kfn(*a, x, *tail), lib, lib,
+                                                 lambda: kfn(*a, x, *tail))]
+                ms, library_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
                 plain_ms = median_ms(lambda: pfn(*a, x, *tail))
-                print(f"[kernels] {name:24s} {label:32s} f32: {ms:.4f} ms kernel, "
-                      f"{plain_ms:.4f} ms plain ({card_name})", flush=True)
-                if "ms" not in rec:  # the first case of a mode is its largest
-                    rec.update(ms=ms, plain_ms=plain_ms)
+                blocks = [t for t in a if t is not None and t.is_floating_point()]
+                ints = [t for t in a if t is not None and not t.is_floating_point()]
+                out_len = 3 * n_nodes if mode == "up" else n_x
+                b_ms, b_by = bound(nbytes(*blocks, *ints, x) + 4 * out_len,
+                                   2 * sum(t.numel() for t in blocks))
+                print(f"[{tag}] {name:24s} {label:32s} f32: {ms:.4f} ms kernel "
+                      f"({turns[0]:.4f}, {turns[3]:.4f}), {library_ms:.4f} ms CSR "
+                      f"torch.sparse.mm ({turns[1]:.4f}, {turns[2]:.4f}; nnz {csr.values().numel()}), "
+                      f"{plain_ms:.4f} ms plain, bound {b_ms:.4f} ms ({b_by}) ({card_name})",
+                      flush=True)
+                rec.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
+                           bound_by=b_by)
+                del csr
     return results
 
 
-def probe_check(name, dtype, out, ref, scale, scale_name, card_name, kfn, pfn):
+def probe_check(name, dtype, out, ref, scale, scale_name, card_name, kfn, pfn, work):
     """Kernel output vs plain, bar BARS[dtype] of ``scale`` (per entry,
-    or one number); prints both times for f32."""
+    or one number); for f32 prints both times and the bound of ``work``
+    = (bytes, flops).  No single library call computes a probe's
+    function: its library_ms is null."""
     import torch
 
     torch.cuda.synchronize()
@@ -171,8 +283,11 @@ def probe_check(name, dtype, out, ref, scale, scale_name, card_name, kfn, pfn):
     rec = {"name": name, "entry": name, "max_abs_err": err}
     if dtype == torch.float32:
         rec["ms"], rec["plain_ms"] = median_ms(kfn), median_ms(pfn)
+        rec["bound_ms"], rec["bound_by"] = bound(*work)
+        rec["library_ms"] = None
         print(f"[probes] {name:22s} f32: {rec['ms']:.4f} ms kernel, "
-              f"{rec['plain_ms']:.4f} ms plain ({card_name})", flush=True)
+              f"{rec['plain_ms']:.4f} ms plain, bound {rec['bound_ms']:.4f} ms "
+              f"({rec['bound_by']}) ({card_name})", flush=True)
     return rec
 
 
@@ -194,7 +309,9 @@ def phase_probes(model, K, rng, card_name):
                           K.stream_saddle_plain(*k3),
                           K.stream_saddle_plain(uu.abs(), up.abs(), pu.abs(), carry),
                           lane_sum, card_name, lambda: K.stream_saddle(*k3),
-                          lambda: K.stream_saddle_plain(*k3))
+                          lambda: K.stream_saddle_plain(*k3),
+                          (nbytes(uu, up, pu, carry) + 4 * K.LANES,
+                           uu.numel() + up.numel() + pu.numel()))
         if "ms" in rec:
             results["stream_saddle"] = dict(rec, counter="stream_saddle")
         # K1 pinned: the first 128 cells' tensors, every cell's dof tables
@@ -203,8 +320,10 @@ def phase_probes(model, K, rng, card_name):
         k1 = (uu[:pin], up[:pin], pu[:pin], c["cd_u"], c["cd_p"], x, n)
         kfn = lambda: K.saddle_matvec(*k1[:3], None, *k1[3:6], "full", n, pinned=True)
         y0 = K.saddle_matvec_pinned_plain(*k1)
+        per_cell = uu[0].numel() + up[0].numel() + pu[0].numel()
         rec = probe_check("saddle_matvec[pinned]", dtype, kfn(), y0, y0.abs().max(),
-                          "max|y|", card_name, kfn, lambda: K.saddle_matvec_pinned_plain(*k1))
+                          "max|y|", card_name, kfn, lambda: K.saddle_matvec_pinned_plain(*k1),
+                          (nbytes(*k1[:6]) + nbytes(x), 2 * per_cell * c["cd_u"].shape[0]))
         if "ms" in rec:
             results["saddle_matvec[pinned]"] = dict(rec, counter="saddle_full_pinned")
     # K4 on profile_stream's shapes: 1140 x 8576 cells
@@ -223,7 +342,9 @@ def phase_probes(model, K, rng, card_name):
         name = f"stream_probe s{n_inputs}{'idx' if with_idx else ''}_B{B}"
         rec = probe_check(name, torch.float32, out, ref, scale, lane_sum, card_name,
                           lambda: K.stream_probe(parts, w0, idx),
-                          lambda: K.stream_probe_plain(parts, w0, idx))
+                          lambda: K.stream_probe_plain(parts, w0, idx),
+                          (nbytes(*parts, w0, *(idx or ())) + 4 * K.LANES,
+                           sum(q.numel() for q in parts)))
         if with_idx:
             check(int(chk) == int(chk0), f"{name}: index checksum {int(chk)} != {int(chk0)}")
         if "stream_probe" not in results:  # the TPU layout, three parts
@@ -299,27 +420,217 @@ def phase_trace(model, state, card_name):
     return state
 
 
+def run_checked(model, state, K, tag, card_name, inv_capped_ok=False, **run_kw):
+    """``model.run(state, **run_kw)`` with the kernel counts set to 0
+    just before and read just after.  Checks every step's CG solve
+    against its cap (and FGMRES's, unless ``inv_capped_ok``), a finite
+    final state, that every kernel of the path launched and that no
+    plain version ran.  Returns the state."""
+    import torch
+
+    from nupgcm_tpu_torch.tools.production import run_logged
+
+    refresh, spent = model.refresh_precond, []
+
+    def timed_refresh(ops, st):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = refresh(ops, st)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t)
+        return out
+
+    model.refresh_precond = timed_refresh
+    torch.cuda.synchronize()
+    K.reset_counts()
+    t0 = time.perf_counter()
+    try:
+        state, auxs = run_logged(model, state, **run_kw)
+        torch.cuda.synchronize()
+    finally:
+        del model.refresh_precond
+    wall = time.perf_counter() - t0
+    launches, plain = dict(K.launches), dict(K.plain_calls)
+    n = len(auxs)
+    steps_s = wall - sum(spent)
+    print(f"[{tag}] {n} steps in {steps_s:.3f} s = {n / steps_s:.3f} steps/s, plus "
+          f"{len(spent)} refresh_precond in {sum(spent):.3f} s ({card_name})", flush=True)
+    print(f"[{tag}] evo_iters per step {[int(a['evo_iters']) for a in auxs]}", flush=True)
+    print(f"[{tag}] inv_iters per step {[int(a['inv_iters']) for a in auxs]}", flush=True)
+    print(f"[{tag}] inv_res per step {[float('%.3g' % a['inv_res']) for a in auxs]}",
+          flush=True)
+    print(f"[{tag}] launches {launches} = per step "
+          f"{ {k: round(v / n, 2) for k, v in launches.items() if v} }; plain calls {plain}",
+          flush=True)
+    capped = [i + 1 for i, a in enumerate(auxs) if a["inv_iters"] >= model.inv_opts["itmax"]]
+    print(f"[{tag}] FGMRES at its cap ({model.inv_opts['itmax']}) in steps {capped}", flush=True)
+    for i, a in enumerate(auxs):
+        check(a["evo_iters"] < model.evo_opts["itmax"], f"{tag} step {i + 1}: CG hit its cap")
+        check(bool(np.isfinite(a["inv_res"])), f"{tag} step {i + 1}: FGMRES residual not finite")
+    check(inv_capped_ok or not capped, f"{tag}: FGMRES hit its cap")
+    for f in ("u", "p", "b", "u_prev", "b_prev"):
+        check(bool(torch.isfinite(getattr(state, f)).all()), f"{tag}: non-finite {f}")
+    path = [k for k in STEP_COUNTERS
+            if not (k == "saddle_full_pp" and "sc_uu" not in model.ops)]
+    check(all(launches[k] > 0 for k in path), f"{tag}: a kernel of the path never launched")
+    check(all(v == 0 for v in plain.values()), f"{tag}: a plain version ran on the card")
+    return state
+
+
+def phase_northstar_full(K, card_name):
+    """8a: the north-star full-physics configuration, 30 steps with a
+    refresh after each eddy rebuild, in f32 and in f64."""
+    import torch
+
+    for dtype in (torch.float32, torch.float64):
+        northstar_run(K, card_name, dtype)
+        torch.cuda.empty_cache()
+
+
+def northstar_run(K, card_name, dtype):
+    """One 8a run against the JAX golden.  f64 is held to the golden's
+    bar, and a checkpoint at 15 resumed to 30 to the straight run.  f32
+    prints its distance to the golden without a bar: the two packages'
+    solves agree to their tolerance, the closures' sharp switches carry
+    that to several 1e-2 of max|b| in 30 steps even between the
+    packages' f64 runs on the CPU (python tests/test_torch_production.py
+    lockstep), and f32 rounding adds to it."""
+    import torch
+
+    from nupgcm_tpu_torch.io import checkpoint as ck
+    from nupgcm_tpu_torch.tools import northstar
+
+    tag = f"8a {str(dtype)[6:]}"
+    f64 = dtype == torch.float64
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, mesh_src = northstar.build_model("full", device="cuda", dtype=dtype)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    fe = model.fe
+    print(f"[{tag}] northstar full, {mesh_src}: {fe.mesh.n_vertices} vertices, "
+          f"{fe.mesh.n_cells} cells, {fe.n_inv} inversion DoF; preconditioner "
+          f"{model.preconditioner_branch}, inner_method {model.inner_method}; build "
+          f"{build_s:.2f} s ({card_name})", flush=True)
+    check((fe.mesh.n_cells, fe.mesh.n_vertices) == (11928, 2335), f"{tag}: not the tool's mesh")
+
+    # the eddy closure's operators depend on the history of b, so the
+    # checkpoint at step 15 keeps the operators it was taken with
+    ck_path = ROOT / "out" / "northstar_full_000015.npz"
+    ck_path.parent.mkdir(exist_ok=True)
+    at15 = {}
+
+    def save(m, st, i):
+        if i == 15 and f64:
+            ck.save_state(m, st, str(ck_path))
+            at15["ops"] = {k: v.clone() for k, v in m.ops.items()}
+
+    # run calls the plot callback before its refresh: a rebuild inside
+    # step i shows at i, the refresh after step i at i + 1
+    changed = {"A_uu_e": [], "visc_e": []}
+    prev = {k: model.ops[k].clone() for k in changed}
+
+    def watch(m, st, i):
+        for k in changed:
+            if not torch.equal(m.ops[k], prev[k]):
+                changed[k].append(i)
+                prev[k] = m.ops[k].clone()
+
+    state = run_checked(
+        model, model.rest_state(), K, tag, card_name, n_info=0, max_steps=30,
+        n_precond_refresh=10, n_save=1, save_callback=save, n_plot=1, plot_callback=watch)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[{tag}] A_uu_e changed after steps {changed['A_uu_e']}, visc_e after "
+          f"{changed['visc_e']}; peak device memory {peak / 2**20:.1f} MiB ({card_name})",
+          flush=True)
+    check(set(changed["A_uu_e"]) >= {10, 20, 30}, f"{tag}: an eddy rebuild was not seen")
+    check(changed["visc_e"] == [11, 21], f"{tag}: the refreshes were not seen where expected")
+
+    ref = np.load(ROOT / "tests" / "data" / "bowl3d_full_30.npz")
+    us, bs = fe.spaces.u_space, fe.spaces.b_space
+    ref_b = bs.from_original_order(ref["b"])
+    ref_u = np.stack([us.from_original_order(ref["u"].reshape(-1, 3)[:, k])
+                      for k in range(3)], axis=1)
+    eb = northstar.rel_l2(fe, state.b.double().cpu().numpy(), ref_b, fe.cd_b, fe.tab_b.phi)
+    eu = northstar.rel_l2(fe, state.u.double().cpu().numpy(), ref_u, fe.cd_u, fe.tab_u.phi)
+    t, t_ref = float(state.t), float(ref["t"])
+    print(f"[{tag}] step {state.step}, t = {t:.7f} (golden {t_ref:.7f} after "
+          f"{int(ref['steps'])} steps): FE rel-L2 b = {eb:.3e}, u = {eu:.3e}"
+          f"{' (bar 1e-3)' if f64 else ' (no bar in f32)'}",
+          flush=True)
+    check(state.step == int(ref["steps"]) == 30, f"{tag}: the run stopped at another step")
+    if not f64:
+        return
+    check(abs(t - t_ref) <= 1e-3 * t_ref, f"{tag}: the adaptive clock drifted from the golden")
+    check(eb < 1e-3 and eu < 1e-3, f"{tag}: the state disagrees with the golden file")
+
+    # resume from the checkpoint with its operators: a refresh after
+    # step 20, as in the straight run (the one after 30 does not touch
+    # the state at 30)
+    model.ops = at15["ops"]
+    st15 = ck.load_state(model, str(ck_path))
+    check(st15.step == 15 and st15.u.dtype == dtype and st15.u.is_cuda,
+          f"{tag}: the checkpoint holds another step, or loaded off the model's device")
+    st_r = model.run(st15, n_info=0, max_steps=20, n_precond_refresh=5)
+    st_r = model.run(st_r, n_info=0, max_steps=30)
+    du = float((st_r.u - state.u).abs().max() / state.u.abs().max())
+    db = float((st_r.b - state.b).abs().max() / state.b.abs().max())
+    print(f"[{tag}] resume 15 -> 30: max|du| = {du:.3e} max|u|, max|db| = {db:.3e} max|b| "
+          f"(bar {RESUME_BAR:.0e})", flush=True)
+    check(st_r.step == 30 and du <= RESUME_BAR and db <= RESUME_BAR,
+          f"{tag}: the resumed run disagrees with the straight run")
+
+
+def phase_production(K, rng, card_name):
+    """8b: the production configuration at h = 0.04: kernels vs plain
+    on its tensors, then 26 steps with a refresh after 25."""
+    import torch
+
+    from nupgcm_tpu_torch.fem import assembly as asm
+    from nupgcm_tpu_torch.tools import production
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, mesh, _ = production.build_model(0.04, device="cuda", dtype=torch.float32)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated()
+    fe = model.fe
+    print(f"[8b] production h = 0.04 (reduced from 0.02): {mesh.n_vertices} vertices, "
+          f"{mesh.n_cells} cells, {fe.n_inv} inversion DoF, {fe.spaces.n_b} P{fe.spaces.b_order} "
+          f"buoyancy DoF; preconditioner {model.preconditioner_branch}, inner_method "
+          f"{model.inner_method}, saddle_coarse_inner {model.saddle_coarse_inner}; build "
+          f"{build_s:.2f} s, peak device memory {build_peak / 2**20:.1f} MiB ({card_name})",
+          flush=True)
+    check((mesh.n_cells, mesh.n_vertices) == (41520, 8346), "8b: not the h = 0.04 mesh")
+    state = model.rest_state()
+    c = model.const
+    kv_q = model.forcings.conv_param.kappa_v(c["kv_q"], model._abz(state.b))
+    Kv_e = asm.elem_stiffness(c["wq"], kv_q, c["Gb3"], (2,))
+    check(float(kv_q.max()) > 10 * float(c["kv_q"].max()), "8b: no convective Kv")
+    phase_kernels(model, K, rng, card_name, tag="8b kernels", Kv_e=Kv_e)
+    del Kv_e, kv_q
+    torch.cuda.reset_peak_memory_stats()
+    # FGMRES stalls on this configuration from the first step, in the
+    # JAX package as in the port (tests/test_torch_production.py::
+    # test_production_aggregate_branch_matches): its cap is reported,
+    # not held
+    state = run_checked(model, state, K, "8b", card_name, inv_capped_ok=True,
+                                 n_info=0, max_steps=26, n_precond_refresh=25)
+    print(f"[8b] peak device memory over the run {torch.cuda.max_memory_allocated() / 2**20:.1f}"
+          f" MiB; |u|max {float(state.u.abs().max()):.3e}, t {float(state.t):.4e}, "
+          f"dt {float(state.dt):.4e} ({card_name})", flush=True)
+    check(state.step == 26, "8b: the run stopped early")
+
+
 def emit_tail(kernels, name_limit, kind, count):
     """The run's last three lines: the card, the kernels, the verdict."""
     print(name_limit)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
-
-
-def fe_rel_l2(fe, vals, ref, cell_dofs, phi):
-    """FE-integral relative L2 (squared-norm ratio), the reference's
-    acceptance metric (tests/_helpers.py::integral_rel_l2)."""
-    wq = np.asarray(fe.geom.wq, np.float64)
-
-    def norm2(v):
-        fq = np.einsum("qi,ci->cq", np.asarray(phi, np.float64), v[cell_dofs])
-        return float(np.einsum("cq,cq->", wq, fq ** 2))
-
-    if vals.ndim == 2:
-        return (sum(norm2(vals[:, k] - ref[:, k]) for k in range(3))
-                / sum(norm2(ref[:, k]) for k in range(3)))
-    return norm2(vals - ref) / norm2(ref)
 
 
 def main():
@@ -331,13 +642,14 @@ def main():
     import nupgcm_tpu_torch as npg
     from nupgcm_tpu_torch.ops import build
     from nupgcm_tpu_torch.ops import kernels as K
-    from nupgcm_tpu_torch.tools._common import initial_b, mixing_setup
+    from nupgcm_tpu_torch.tools._common import card_name_limit, initial_b, mixing_setup
+    from nupgcm_tpu_torch.tools.northstar import rel_l2
 
     check(pathlib.Path(npg.__file__).resolve().is_relative_to(ROOT),
           f"nupgcm_tpu_torch imported from outside {ROOT}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    name_limit = card()
+    name_limit = card_name_limit()
     kind = torch.cuda.get_device_name(0)
     print(f"[device] {name_limit}; torch {torch.__version__}, CUDA {torch.version.cuda}",
           flush=True)
@@ -401,8 +713,9 @@ def main():
         check(bool(torch.isfinite(getattr(state, f)).all()), f"slice: non-finite {f}")
     peak = torch.cuda.max_memory_allocated()
     print(f"[slice] 10 steps in {t_steps:.3f} s = {10 / t_steps:.3f} steps/s; "
-          f"peak device memory {peak / 2**20:.1f} MiB; launches {launches}; "
-          f"plain calls {plain} ({name_limit})", flush=True)
+          f"peak device memory {peak / 2**20:.1f} MiB; launches {launches} = per step "
+          f"{ {k: v / 10 for k, v in launches.items() if v} }; plain calls {plain} "
+          f"({name_limit})", flush=True)
     check(all(launches[k] > 0 for k in STEP_COUNTERS),
           f"a kernel of the path never launched: {launches}")
     check(all(n == 0 for n in plain.values()), f"a plain version ran on the card: {plain}")
@@ -432,20 +745,28 @@ def main():
                       for k in range(3)], axis=1)
     b = st.b.double().cpu().numpy()
     u = st.u.double().cpu().numpy()
-    eb = fe_rel_l2(fe, b, ref_b, fe.cd_b, fe.tab_b.phi)
-    eu = fe_rel_l2(fe, u, ref_u, fe.cd_u, fe.tab_u.phi)
+    eb = rel_l2(fe, b, ref_b, fe.cd_b, fe.tab_b.phi)
+    eu = rel_l2(fe, u, ref_u, fe.cd_u, fe.tab_u.phi)
     print(f"[golden] bowl2D h=0.1, {st.step} f32 BDF2 steps to t = {float(st.t):.7f} "
           f"(golden t = {float(ref['t']):.7f}) on the card in {time.perf_counter() - t0:.2f} s: "
           f"FE rel-L2 b = {eb:.3e}, u = {eu:.3e} (bar 1e-3)", flush=True)
     check(st.step == n_steps and abs(float(st.t) - float(ref["t"])) < 1e-5,
           "golden run stopped at another time")
     check(eb < 1e-3 and eu < 1e-3, "golden run disagrees with the golden file")
+    del golden, st
+    torch.cuda.empty_cache()
+
+    # 8. full physics
+    phase_northstar_full(K, name_limit)
+    torch.cuda.empty_cache()
+    phase_production(K, np.random.default_rng(2), name_limit)
 
     check("jax" not in sys.modules, "JAX was imported")
     kernels = [
         {"name": r["name"], "route": "cuda", "source": SOURCES[r["entry"]],
          "replaces": REPLACES[r["entry"]], "launches": r["launches"],
-         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"]}
+         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
         for r in (*results.values(), *probes.values())]
     emit_tail(kernels, name_limit, kind, torch.cuda.device_count())
 

@@ -12,6 +12,8 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Any, Callable
 
+import torch
+
 
 @dataclass(frozen=True)
 class Parameters:
@@ -74,7 +76,7 @@ class ConvectionParameterization:
         return ConvectionParameterization(0.0, 0.0, is_on=False)
 
     def kappa_v(self, kv, abz):
-        raise NotImplementedError("the convection closure is not ported yet")
+        return kv + self.kappa_c * (1.0 + torch.tanh(-abz / self.N2_min)) / 2.0
 
 
 @dataclass(frozen=True)
@@ -94,7 +96,13 @@ class EddyParameterization:
         return EddyParameterization(0.0, 0.0, is_on=False)
 
     def nu(self, f_q, abz):
-        raise NotImplementedError("the eddy closure is not ported yet")
+        s, nmin = self.smoothing, self.nu_min
+        nu_eddy = f_q * (f_q / torch.sqrt(self.N2_min ** 2 + abz * abz))
+        # stable LogSumExp: the naive log(exp(s a)+exp(s b))/s overflows
+        # f32 once s*nu_eddy > ~88 (nu_eddy ~ 9 at s=10), which weakly
+        # stratified regions reach easily -- the inf then NaNs the
+        # whole inversion matrix
+        return torch.logaddexp(torch.full_like(nu_eddy, s * nmin), s * nu_eddy) / s
 
 
 @dataclass(frozen=True)

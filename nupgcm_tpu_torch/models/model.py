@@ -18,8 +18,13 @@ values, so the B-matrix product already contains the reference's
 operator application goes through ``ops/kernels.py``: the CUDA kernels
 on a CUDA device, their plain versions on the CPU.
 
-Not ported yet: the convection and eddy closures, the u-block two-grid
-(``saddle_coarse=False``) and ``refresh_precond``.
+Closures (reference src/inputs.jl:63-137): convection rebuilds the
+vertical diffusivity from the current b every step; the eddy closure
+rebuilds the inversion blocks from the current b every 10 steps
+(reference src/model.jl:160-170) and ``refresh_precond`` rebuilds the
+preconditioner on the caller's cadence.
+
+Not ported yet: the u-block two-grid (``saddle_coarse=False``).
 """
 
 from __future__ import annotations
@@ -154,11 +159,11 @@ def _hms(seconds: float) -> str:
 class PGModel:
     """Planetary-geostrophic model on one torch device.
 
-    ``device="cuda"`` builds the CUDA element-matvec kernels (or
-    raises with the compiler's output) and runs every operator
-    application through them; ``device="cpu"`` runs their plain
-    PyTorch versions.  ``dtype`` is float32 (the production type) or
-    float64.
+    ``device="cuda"`` (the default) builds the CUDA element-matvec
+    kernels (or raises with the compiler's output, or when there is no
+    CUDA device) and runs every operator application through them;
+    ``device="cpu"`` runs their plain PyTorch versions.  ``dtype`` is
+    float32 (the production type) or float64.
     """
 
     def __init__(
@@ -168,7 +173,7 @@ class PGModel:
         forcings: Forcings,
         timestepper,
         dtype=torch.float32,
-        device="cpu",
+        device="cuda",
         inv_atol=1e-6,
         inv_rtol=1e-6,
         inv_itmax=0,
@@ -189,9 +194,6 @@ class PGModel:
         saddle_coarse_l2: Optional[bool] = None,
         assembly_chunk: int = 8192,
     ):
-        if forcings.conv_param.is_on or forcings.eddy_param.is_on:
-            raise NotImplementedError(
-                "the convection and eddy closures are not ported yet")
         if dtype not in (torch.float32, torch.float64):
             raise ValueError(f"dtype must be torch.float32 or torch.float64, got {dtype}")
         self.fe = fe
@@ -202,6 +204,9 @@ class PGModel:
         self.device = torch.device(device)
         if self.device.type == "cuda":
             build.load()  # build the kernels now, or raise with nvcc's output
+            if not torch.cuda.is_available():
+                raise RuntimeError("device='cuda' asked for, but "
+                                   "torch.cuda.is_available() is False")
         # bounded iteration budgets: 25 restart cycles / 1000 CG steps
         # is far beyond any converging configuration
         if inv_itmax == 0:
@@ -316,7 +321,10 @@ class PGModel:
         c["nu_q"] = T(_quad_eval(fr.nu, xq))
         c["kh_q"] = T(_quad_eval(fr.kappa_h, xq))
         c["kv_q"] = T(_quad_eval(fr.kappa_v, xq))
-        self.variable_nu = callable(fr.nu)
+        self.variable_nu = callable(fr.nu) or fr.eddy_param.is_on
+        # eddy parameterization f at quad points
+        if fr.eddy_param.is_on:
+            c["f_eddy_q"] = T(_quad_eval(fr.eddy_param.f, xq))
 
         # surface group
         surf = fe.surface
@@ -372,19 +380,31 @@ class PGModel:
     # ------------------------------------------------------------------
     # operator assembly (device, once at setup)
     # ------------------------------------------------------------------
-    def _chunked_cells(self, fn, *cell_arrays):
+    def _chunked_cells(self, fn, *cell_arrays, out=None):
         """Apply an element-tensor function to chunks of at most
-        ``assembly_chunk`` cells (bounds transient memory)."""
+        ``assembly_chunk`` cells (bounds transient memory).
+
+        ``out`` (a tensor, or a tuple matching ``fn``'s results): write
+        each chunk into these existing tensors instead of concatenating
+        new ones -- the closures' rebuilds use it, so peak memory holds
+        one copy of each element tensor plus one chunk."""
         nc = cell_arrays[0].shape[0]
         step = self.assembly_chunk
+        if out is not None:
+            dst = out if isinstance(out, tuple) else (out,)
+            for s in range(0, nc, step):
+                res = fn(*[a[s:s + step] for a in cell_arrays])
+                for o, v in zip(dst, res if isinstance(res, tuple) else (res,)):
+                    o[s:s + step] = v
+            return out
         outs = [fn(*[a[s:s + step] for a in cell_arrays]) for s in range(0, nc, step)]
         if isinstance(outs[0], tuple):
             return tuple(torch.cat(parts) for parts in zip(*outs))
         return torch.cat(outs)
 
-    def _assemble_inversion_elems(self, nu_q):
+    def _assemble_inversion_elems(self, nu_q, out=None):
         """Element tensors of the saddle operator -- kept element-local
-        (never scattered to a sparse matrix)."""
+        (never scattered to a sparse matrix); into ``out`` when given."""
         c = self.const
         a2e2 = self.params.a2e2
 
@@ -393,7 +413,7 @@ class PGModel:
             return asm.elem_inversion_blocks(
                 wq, nu_q, f_q, c["phi_u"], Gu3, c["phi_p"], a2e2, self.variable_nu)
 
-        return self._chunked_cells(build_, c["wq"], nu_q, c["f_q"], c["invJT"])
+        return self._chunked_cells(build_, c["wq"], nu_q, c["f_q"], c["invJT"], out=out)
 
     def _visc_elems(self, wq, nu_q, f_q, G3, phi):
         """SPD velocity-block surrogate: viscous + |f| mass, per
@@ -405,16 +425,16 @@ class PGModel:
         nl = phi.shape[1]
         return elem.reshape(wq.shape[0], 3 * nl, 3 * nl)
 
-    def _assemble_visc_elems(self, nu_q):
+    def _assemble_visc_elems(self, nu_q, out=None):
         c = self.const
 
         def build_(wq, nu_q, f_q, invJT):
             Gu3 = asm.physical_grads(invJT, c["dphi_u"], c["embed"])
             return self._visc_elems(wq, nu_q, f_q, Gu3, c["phi_u"])
 
-        return self._chunked_cells(build_, c["wq"], nu_q, c["f_q"], c["invJT"])
+        return self._chunked_cells(build_, c["wq"], nu_q, c["f_q"], c["invJT"], out=out)
 
-    def _assemble_saddle_coarse(self, ops):
+    def _assemble_saddle_coarse(self, ops, nu_q=None):
         """P1-P1 COARSE SADDLE system (velocity AND pressure) -- the
         geostrophic coarse solve for the rotation-dominated
         (small-Ekman) regime.
@@ -427,17 +447,23 @@ class PGModel:
         (4 n_vert <= coarse_dense_max): dense inverse once at setup.
         Larger meshes: element-local coarse blocks, solved per
         application by the aggregate-level cycle or an inner FGMRES.
+
+        ``nu_q`` (volume quadrature points; default the build-time
+        ``c["nu_q"]``) lets ``refresh_precond`` rebuild the coarse
+        level from the current eddy viscosity.
         """
         if self.saddle_coarse_dense:
-            self._assemble_saddle_coarse_dense(ops)
+            self._assemble_saddle_coarse_dense(ops, nu_q)
         else:
-            self._assemble_saddle_coarse_elems(ops)
+            self._assemble_saddle_coarse_elems(ops, nu_q)
 
-    def _assemble_saddle_coarse_elems(self, ops):
+    def _assemble_saddle_coarse_elems(self, ops, nu_q=None):
         """Element tensors of the BP-stabilized P1-P1 coarse saddle
         operator + the coarse visc smoothing surrogate (the scalable
-        coarse path)."""
+        coarse path).  A refresh rebuilds them into the tensors ``ops``
+        already holds."""
         c = self.const
+        nu_q = c["nu_q"] if nu_q is None else nu_q
         fe = self.fe
         a2e2 = self.params.a2e2
         delta = self.saddle_coarse_delta
@@ -452,9 +478,10 @@ class PGModel:
             pp = delta * h2[:, None, None] * gg
             return uu, up, pu, pp, self._visc_elems(wq, nu_q, f_q, Gp3, c["phi_p"])
 
-        (ops["sc_uu"], ops["sc_up"], ops["sc_pu"], ops["sc_pp"],
-         ops["sc_visc_e"]) = self._chunked_cells(
-            build_, c["wq"], c["nu_q"], c["f_q"], c["invJT"], h2)
+        keys = ("sc_uu", "sc_up", "sc_pu", "sc_pp", "sc_visc_e")
+        out = tuple(ops[k] for k in keys) if all(k in ops for k in keys) else None
+        ops.update(zip(keys, self._chunked_cells(
+            build_, c["wq"], nu_q, c["f_q"], c["invJT"], h2, out=out)))
 
         # rank-one constant-pressure pin + spectral bound of the
         # smoothing surrogate (for Chebyshev), computed once
@@ -475,14 +502,14 @@ class PGModel:
         ops["sc_lmax"] = power_lmax(cvisc, 1.0 / cvisc.diagonal(), 3 * nv)
 
         if self.saddle_coarse_l2:
-            self._assemble_saddle_coarse_l2(ops)
+            self._assemble_saddle_coarse_l2(ops, nu_q)
 
     def _coarse_free(self):
         """Free mask of the coarse (3nv velocity, nv pressure) level."""
         c = self.const
         return torch.cat([c["tg_coarse_free"], c["free_inv"][self.fe.spaces.n_u:]])
 
-    def _assemble_saddle_coarse_l2(self, ops):
+    def _assemble_saddle_coarse_l2(self, ops, nu_q=None):
         """Second (aggregate) coarse level for the iterative coarse
         path: vertices are clustered into contiguous aggregates by a
         capped BFS (in the RCM vertex order, so aggregates are
@@ -494,15 +521,20 @@ class PGModel:
         c = self.const
         fe = self.fe
         nv = fe.spaces.p_space.ndof
-        uu, up, pu, stab, idx_u, idx_p, pv = self._sc_host_blocks()
+        uu, up, pu, stab, idx_u, idx_p, pv = self._sc_host_blocks(nu_q)
         free = self._coarse_free().cpu().numpy().astype(np.float64)
-        agg, na = _aggregate_vertices(
-            np.asarray(fe.cd_p[: fe.mesh.n_cells], np.int64), nv,
-            max(1, self.coarse_dense_max // 4))
-        # fine coarse-level dof (3nv u then nv p) -> aggregate dof
-        # (3*aggregate + component, then 3na + aggregate)
-        dofmap = np.concatenate([(3 * agg[:, None] + np.arange(3)).reshape(-1),
-                                 3 * na + agg])
+        # the aggregation and the dof map depend only on the mesh:
+        # refresh_precond reuses them
+        if not hasattr(self, "_sc2_cache"):
+            agg, na = _aggregate_vertices(
+                np.asarray(fe.cd_p[: fe.mesh.n_cells], np.int64), nv,
+                max(1, self.coarse_dense_max // 4))
+            # fine coarse-level dof (3nv u then nv p) -> aggregate dof
+            # (3*aggregate + component, then 3na + aggregate)
+            dofmap = np.concatenate([(3 * agg[:, None] + np.arange(3)).reshape(-1),
+                                     3 * na + agg])
+            self._sc2_cache = (agg, na, dofmap)
+        agg, na, dofmap = self._sc2_cache
         N2 = 4 * na
 
         def scatter_idx(rows, cols, vals):
@@ -592,7 +624,7 @@ class PGModel:
 
         return solve
 
-    def _sc_host_blocks(self):
+    def _sc_host_blocks(self, nu_q=None):
         """Host-float64 element blocks of the BP-stabilized P1-P1
         coarse saddle operator (shared by the dense-inverse coarse path
         and the aggregate level).  float64 throughout: the BP-stabilized
@@ -607,7 +639,7 @@ class PGModel:
         phi_p = np.asarray(fe.tab_p.phi, np.float64)
         dphi_p = np.asarray(fe.tab_p.dphi, np.float64)
         f_q = c["f_q"].cpu().numpy().astype(np.float64)
-        nu_q = c["nu_q"].cpu().numpy().astype(np.float64)
+        nu_q = (c["nu_q"] if nu_q is None else nu_q).cpu().numpy().astype(np.float64)
         nlp = phi_p.shape[1]
 
         gp = np.einsum("cpr,qir->cqip", invJT, dphi_p)
@@ -645,12 +677,12 @@ class PGModel:
         np.add.at(pv, cd_p.ravel(), np.einsum("cq,qk->ck", wq, phi_p).ravel())
         return uu, up, pu, stab, idx_u, idx_p, pv
 
-    def _assemble_saddle_coarse_dense(self, ops):
+    def _assemble_saddle_coarse_dense(self, ops, nu_q=None):
         """Dense-inverse coarse path (small meshes): host float64
-        assembly + inverse once at setup."""
+        assembly + inverse at setup and at each refresh."""
         nv = self.fe.spaces.p_space.ndof
         Nc = 4 * nv
-        uu, up, pu, stab, idx_u, idx_p, pv = self._sc_host_blocks()
+        uu, up, pu, stab, idx_u, idx_p, pv = self._sc_host_blocks(nu_q)
         A = np.zeros((Nc, Nc))
 
         def scatter(rows, cols, vals):
@@ -762,8 +794,9 @@ class PGModel:
         yu = fe.vec_plan_u_nodes.assemble_rows(ye.reshape(-1, 3)).reshape(-1)
         return torch.cat([yu, yu.new_zeros(fe.spaces.n_p)])
 
-    def _evo_matrix(self, ops, theta) -> ElementOperator:
-        return ElementOperator(Ae=ops["M_e"] + theta * (ops["Kh_e"] + ops["Kv_e"]),
+    def _evo_matrix(self, ops, theta, Kv_e=None) -> ElementOperator:
+        Kv_e = ops["Kv_e"] if Kv_e is None else Kv_e
+        return ElementOperator(Ae=ops["M_e"] + theta * (ops["Kh_e"] + Kv_e),
                                cd=self.const["cd_b"], n=self.fe.spaces.n_b)
 
     def _mp_operator(self, ops) -> ElementOperator:
@@ -862,8 +895,18 @@ class PGModel:
         ``r``: step ratio dt_new/dt_old for the variable-step BDF2
         coefficients."""
         c = self.const
-        fe, pr = self.fe, self.params
+        fe, pr, fr = self.fe, self.params, self.forcings
         dt_ = state.dt
+
+        # convection: rebuild Kv and rhs_diff from the current b
+        if fr.conv_param.is_on:
+            kv_q = fr.conv_param.kappa_v(c["kv_q"], self._abz(state.b))
+            Kv_e = asm.elem_stiffness(c["wq"], kv_q, c["Gb3"], (2,))
+            rhs_diff = fe.vec_plan_b.assemble(
+                asm.elem_rhs_diff(c["wq"], kv_q, c["Gb3"], pr.N2))
+        else:
+            Kv_e, rhs_diff = ops["Kv_e"], ops["rhs_diff"]
+
         # BDF coefficients; BDF2 runs its first step as BDF1.
         # Variable-step BDF2 (ratio r): c0=(1+r)^2/(1+2r), c1=r^2/(1+2r),
         # implicit/advection weight w=(1+r)/(1+2r); fixed step r=1
@@ -880,7 +923,7 @@ class PGModel:
         else:
             theta, c0, c1, cdt, w2 = base_theta, 1.0, 0.0, dt_, 1.0
 
-        Afull = self._evo_matrix(ops, theta)
+        Afull = self._evo_matrix(ops, theta, Kv_e)
         A = MaskedOperator(Afull, c["free_b"])
 
         # advection rhs (per-step element assembly)
@@ -899,7 +942,7 @@ class PGModel:
         rhs_adv = fe.vec_plan_b.assemble(
             torch.einsum("cq,qi,cq->ci", c["wq"], c["phi_b"], integ))
 
-        y_full = rhs_adv + theta * ops["rhs_diff"] + dt_ * ops["rhs_flux"]
+        y_full = rhs_adv + theta * rhs_diff + dt_ * ops["rhs_flux"]
         xd = c["bdiri"] * (1.0 - c["free_b"])
         y = torch.where(A.free_bool, y_full - Afull.matvec(xd), c["bdiri"])
         return cg(A, y, state.b, M_diag_inv=1.0 / A.diagonal(), **self.evo_opts)
@@ -919,12 +962,70 @@ class PGModel:
             dt_new = torch.minimum(dt_new, 2.0 * state.dt)
         return dt_new
 
+    def _abz(self, b):
+        """alpha (N2 + db/dz) at volume quadrature points: the
+        stratification both closures read."""
+        c, pr = self.const, self.params
+        return pr.alpha * (pr.N2 + torch.einsum("cqi,ci->cq", c["Gb3"][..., 2], b[c["cd_b"]]))
+
+    def refresh_precond(self, ops, state: State):
+        """Preconditioner refresh from the CURRENT eddy viscosity;
+        returns a new ops dict (``ops`` itself when the eddy closure is
+        off).
+
+        The reference rebuilds the inversion matrix every 10 steps but
+        keeps its preconditioner frozen (src/model.jl:160-170); as nu
+        drifts from the build-time field (up to f^2/N2_min in
+        destratified boundary layers) the frozen spectral bounds and
+        coarse operators go stale and the outer iteration count grows.
+        This recomputes every nu-dependent preconditioner operator from
+        ``state.b``: the inversion blocks (the values the next eddy
+        rebuild would produce), the smoother block with its diagonal and
+        spectral bound, the saddle-coarse tensors with their diagonal,
+        pin, bound and aggregate-level inverse (or the dense coarse
+        inverse).  Every shape is kept.
+
+        Memory: the element tensors (``A_*_e``, ``visc_e``, ``sc_*``)
+        are rebuilt chunk by chunk INTO the tensors ``ops`` holds, so
+        the returned dict shares them with ``ops`` and peak device
+        memory holds one copy; the small tensors are new.  Call between
+        steps; ``run(n_precond_refresh=...)`` does it on a cadence."""
+        fr = self.forcings
+        if not fr.eddy_param.is_on:
+            return ops
+        c, sp = self.const, self.fe.spaces
+        ops = dict(ops)
+        nu_q = self._eddy_rebuild(ops, state)
+        self._assemble_visc_elems(nu_q, out=ops["visc_e"])
+        visc_op = MaskedOperator(self._visc_operator(ops["visc_e"]), c["free_u"])
+        ops["visc_dinv"] = 1.0 / visc_op.diagonal()
+        ops["lmax_u"] = power_lmax(visc_op, ops["visc_dinv"], sp.n_u)
+        if self.saddle_coarse:
+            self._assemble_saddle_coarse(ops, nu_q)
+            if "sc_visc_e" in ops:
+                cvisc = MaskedOperator(self._coarse_operator(ops["sc_visc_e"]),
+                                       c["tg_coarse_free"])
+                ops["sc_visc_dinv"] = 1.0 / cvisc.diagonal()
+        return ops
+
+    def _eddy_rebuild(self, ops, state: State):
+        """Eddy-viscosity inversion-matrix rebuild (reference
+        src/model.jl:160-170), written into ``ops``' own inversion
+        blocks (one copy in memory); the preconditioner is kept, as the
+        reference keeps it.  Returns the viscosity at the quadrature
+        points."""
+        nu_q = self.forcings.eddy_param.nu(self.const["f_eddy_q"], self._abz(state.b))
+        self._assemble_inversion_elems(nu_q, out=(ops["A_uu_e"], ops["A_up_e"], ops["A_pu_e"]))
+        return nu_q
+
     # ------------------------------------------------------------------
     # host-level API
     # ------------------------------------------------------------------
     def step(self, state: State):
         """One timestep: (new_state, aux) with solver iteration counts
-        and the progress-line diagnostics (Python numbers)."""
+        and the progress-line diagnostics (Python numbers).  With the
+        eddy closure on, every 10th step rebuilds the inversion blocks
+        of ``self.ops`` from the new buoyancy."""
         dt_old = state.dt
         dt_ = self._update_dt(state)
         state = State(u=state.u, p=state.p, b=state.b, u_prev=state.u_prev,
@@ -934,6 +1035,8 @@ class PGModel:
         u_new, p_new, inv_stats = self._invert_pure(self.ops, b_new, x0)
         new_state = State(u=u_new, p=p_new, b=b_new, u_prev=state.u, b_prev=state.b,
                           t=state.t + dt_, dt=dt_, step=state.step + 1)
+        if self.forcings.eddy_param.is_on and new_state.step % 10 == 0:
+            self._eddy_rebuild(self.ops, new_state)
         freeb = self.const["free_b"].bool()
         u_max = torch.abs(u_new).max()
         inf = torch.tensor(float("inf"), dtype=b_new.dtype, device=b_new.device)
@@ -954,7 +1057,9 @@ class PGModel:
         """``n`` timesteps: (state, auxs), ``auxs[key]`` a length-n numpy
         array of the per-step aux values, as the JAX package's
         ``multi_step`` stacks them (a ``lax.scan``).  Here it is a loop
-        over ``step``; capturing it in a CUDA graph is later work."""
+        over ``step``, so the eddy rebuilds land in ``self.ops`` as they
+        ride in the scan carry there; capturing it in a CUDA graph is
+        later work."""
         auxs = {k: [] for k in AUX_KEYS}
         for _ in range(n):
             state, aux = self.step(state)
@@ -1031,19 +1136,33 @@ class PGModel:
         return State(u=u, p=p, b=state.b, u_prev=state.u_prev, b_prev=state.b_prev,
                      t=state.t, dt=state.dt, step=state.step)
 
-    def run(self, state: State, n_info: int = 10, max_steps: Optional[int] = None,
+    def run(self, state: State, n_info: int = 10, n_save: Optional[int] = None,
+            save_callback: Optional[Callable] = None, n_plot: Optional[int] = None,
+            plot_callback: Optional[Callable] = None, max_steps: Optional[int] = None,
+            steps_per_block: int = 1, n_precond_refresh: Optional[int] = None,
             log: Callable = print) -> State:
         """Advance until t >= t_stop (reference run!, src/model.jl:90-211),
         raising ``BlowUpError`` when |u| or |b| exceeds 1e3 or is NaN.
 
         The progress block matches the reference's field-for-field
-        (src/model.jl:172-192)."""
+        (src/model.jl:172-192).  ``save_callback(model, state, i)`` and
+        ``plot_callback(model, state, i)`` run every ``n_save`` /
+        ``n_plot`` steps.  ``steps_per_block > 1`` advances blocks of
+        steps through ``multi_step``; logging, saving and the refresh
+        cadence then apply at block granularity.  ``n_precond_refresh``
+        calls ``refresh_precond`` once that many steps have passed since
+        the last refresh (eddy closure only)."""
         t_stop = float(self.ts.t_stop)
         t0 = t_last_info = time.time()
-        i0 = i = state.step
+        i0 = i = last_refresh = state.step
         while float(state.t) < t_stop:
-            state, aux = self.step(state)
-            i += 1
+            if steps_per_block > 1:
+                state, auxs = self.multi_step(state, steps_per_block)
+                aux = {k: v[-1].item() for k, v in auxs.items()}
+                i += steps_per_block
+            else:
+                state, aux = self.step(state)
+                i += 1
             u_max, b_max = aux["u_max"], aux["b_max"]
             if max(u_max, b_max) > 1e3 or np.isnan(u_max) or np.isnan(b_max):
                 raise BlowUpError(
@@ -1061,10 +1180,22 @@ class PGModel:
                 msg += (f"|u|max = {u_max:.3e}, CFL dt ~ {aux['cfl_dt']:.3e}\n"
                         f"{aux['b_free_min']:.3e} <= b_free <= {aux['b_free_max']:.3e}, "
                         f"|db/dt|max = {aux['db_dt_max']:.3e}\n"
-                        f"evo_it = {aux['evo_iters']}, inv_it = {aux['inv_iters']}")
+                        f"evo_it = {int(aux['evo_iters'])}, inv_it = {int(aux['inv_iters'])}")
                 log(msg)
                 t_last_info = t1
                 sys.stdout.flush()
+            if n_save and i % n_save == 0 and save_callback is not None:
+                save_callback(self, state, i)
+            if n_plot and i % n_plot == 0 and plot_callback is not None:
+                plot_callback(self, state, i)
+            # steps since the last refresh, not a modulo: with
+            # steps_per_block > 1, i only hits multiples of the block
+            # size, and a cadence the block does not divide would
+            # otherwise never fire
+            if (n_precond_refresh and i - last_refresh >= n_precond_refresh
+                    and self.forcings.eddy_param.is_on):
+                self.ops = self.refresh_precond(self.ops, state)
+                last_refresh = i
             if max_steps is not None and i >= int(max_steps):
                 break
         return state

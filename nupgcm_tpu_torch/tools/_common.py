@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import statistics
+import subprocess
 import tempfile
 import time
 
@@ -26,6 +27,15 @@ def require_cuda() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("this tool measures a CUDA device and "
                            "torch.cuda.is_available() is False")
+
+
+def card_name_limit() -> str:
+    """``nvidia-smi --query-gpu=name,power.limit`` of the first card:
+    printed beside every time the tools and chip_smoke.py measure."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
 
 
 def mixing_setup(mesh, device="cuda", dtype=torch.float32, t_stop=None, eps=2e-1,

@@ -212,7 +212,7 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 
 def test_model_on_cpu_uses_plain_versions_only():
-    model = npt.PGModel(*_small_model_args(), dtype=torch.float64)
+    model = npt.PGModel(*_small_model_args(), dtype=torch.float64, device="cpu")
     K.reset_counts()
     model.step(model.set_b(model.rest_state(), lambda x: x[2]))
     assert K.plain_calls["saddle"] > 0 and K.plain_calls["scalar"] > 0

@@ -35,7 +35,7 @@ def test_hydrostatic_exactness():
                         b_diri_tags=[], b_diri_vals=[])
     fe = npt.FEData(mesh, spaces)
     ts = npt.BDF2(t_start=0, t_stop=1, dt=1e-2)
-    model = npt.PGModel(fe, params, forc, ts, dtype=torch.float64,
+    model = npt.PGModel(fe, params, forc, ts, dtype=torch.float64, device="cpu",
                         inv_atol=1e-10, inv_rtol=1e-12)
     st = model.invert(model.set_b(model.rest_state(), lambda x: 1.0 + 0 * x[0]))
     assert float(st.u.abs().max()) < 1e-7
@@ -58,7 +58,7 @@ def test_adaptive_bdf2_variable_step():
     cap = 2e-3
     ts = npt.BDF2(t_start=0, t_stop=1.0, dt=cap / 16, adaptive=True,
                   CFL_factor=cap * 0.01 / fe.h_cells.min())
-    model = npt.PGModel(fe, params, forc, ts, dtype=torch.float64)
+    model = npt.PGModel(fe, params, forc, ts, dtype=torch.float64, device="cpu")
     st = model.run(model.set_b(model.rest_state(), lambda x: np.sin(np.pi * x[2])),
                    n_info=0, max_steps=40)
     assert float(st.dt) == pytest.approx(cap, rel=1e-6)
@@ -106,7 +106,8 @@ def test_bowl_mixing_golden():
     t = 5.1) takes 51."""
     ref = np.load(pathlib.Path(__file__).parent / "data" / "bowl_mixing_2d.npz")
     dt = 1e-4 * 1e1 / (0.5 * 2e-1) ** 2
-    model = _mixing(npt, npt.generators.bowl2D(0.1, 0.5), dt, dtype=torch.float64)
+    model = _mixing(npt, npt.generators.bowl2D(0.1, 0.5), dt, dtype=torch.float64,
+                    device="cpu")
     st = model.run(model.rest_state(), n_info=0)
     assert st.step == 51 and float(st.t) == pytest.approx(float(ref["t"]), rel=1e-14)
     fe = model.fe
@@ -137,7 +138,7 @@ def pair(request):
     h, nz, kw = BRANCHES[request.param]
     mj = _mixing(npj, npj.generators.bowl3D(h, 0.5, nz=nz), 0.05, **kw)
     mt = _mixing(npt, npt.generators.bowl3D(h, 0.5, nz=nz), 0.05,
-                 dtype=torch.float64, **kw)
+                 dtype=torch.float64, device="cpu", **kw)
     return request.param, mj, mt
 
 
@@ -176,14 +177,24 @@ def test_branch_steps_match(pair):
     assert float(st.t) == pytest.approx(float(sj.t), rel=1e-15)
 
 
-def test_unported_closures_raise():
+def test_default_device_is_the_card(monkeypatch):
+    """PGModel runs on the card unless the caller asks for the CPU; with
+    no CUDA device it raises instead of falling back."""
+    import inspect
+
+    from nupgcm_tpu_torch.ops import build
+
+    assert inspect.signature(npt.PGModel).parameters["device"].default == "cuda"
     mesh = npt.generators.rect_mesh(2, 2)
     spaces = npt.Spaces(mesh, u_diri_tags=["boundary"], u_diri_masks=[(True,) * 3])
     fe = npt.FEData(mesh, spaces)
     params = npt.Parameters(eps=1.0, alpha=1.0, mu_rho=1.0, N2=0.0,
                             f=lambda x: 1.0 + 0 * x[0], H=lambda x: 1.0)
     forc = npt.Forcings(nu=1.0, kappa_h=1.0, kappa_v=1.0, tau_x=0.0, tau_y=0.0,
-                        b_surface_bc=npt.SurfaceDirichletBC(0.0),
-                        conv_param=npt.ConvectionParameterization(kappa_c=1.0, N2_min=1e-3))
-    with pytest.raises(NotImplementedError, match="closures"):
-        npt.PGModel(fe, params, forc, npt.BDF1(t_start=0, t_stop=1, dt=0.1))
+                        b_surface_bc=npt.SurfaceDirichletBC(0.0))
+    ts = npt.BDF1(t_start=0, t_stop=1, dt=0.1)
+    monkeypatch.setattr(build, "load", lambda: None)  # as if nvcc had built them
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        npt.PGModel(fe, params, forc, ts)
+    assert npt.PGModel(fe, params, forc, ts, device="cpu").device.type == "cpu"

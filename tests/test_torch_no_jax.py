@@ -10,8 +10,11 @@ def test_port_imports_without_jax():
             "import nupgcm_tpu_torch\n"
             "from nupgcm_tpu_torch.models import model\n"
             "from nupgcm_tpu_torch.ops import build, kernels\n"
-            "from nupgcm_tpu_torch.tools import (_common, profile_matvec, profile_step,\n"
+            "from nupgcm_tpu_torch.tools import (_common, northstar, production,\n"
+            "                                    profile_matvec, profile_step,\n"
             "                                    profile_stream, sweep_inner)\n"
+            "from nupgcm_tpu_torch.io import checkpoint\n"
+            "from nupgcm_tpu_torch.mesh import generators, quality\n"
             "from nupgcm_tpu_torch.utils import timing\n"
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
             "assert 'nupgcm_tpu' not in sys.modules\n")

@@ -238,3 +238,23 @@ def test_chip_smoke_fails_without_cuda_or_without_the_repo(tmp_path):
     proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0 and '"ok"' not in proc.stdout
+
+
+def test_chip_smoke_csr_yardstick_matches_plain(small):
+    """The library yardstick of chip_smoke.py: every kernel case's
+    operator assembled to CSR gives the plain version's product, and
+    the bound counts each input once."""
+    cs = _chip_smoke()
+    rng = np.random.default_rng(0)
+    cases = cs.kernel_cases(small, K)
+    assert {c[3] for c in cases} == {"full", "up", "uu", "full_pp", None}
+    for entry, _, pfn, mode, label, args, n_x, n_nodes in cases:
+        tail = () if mode is None else (mode, n_nodes)
+        x = torch.as_tensor(rng.standard_normal(n_x))
+        y0 = pfn(*args, x, *tail)
+        y = torch.sparse.mm(cs.operator_csr(mode, args, n_x, n_nodes), x[:, None])[:, 0]
+        assert y.shape == y0.shape, label
+        assert float((y - y0).abs().max()) <= 1e-12 * float(y0.abs().max()), label
+    ms, by = cs.bound(3.35e9, 0)
+    assert (ms, by) == (pytest.approx(1.0), "bytes")
+    assert cs.bound(0, 67e9) == (pytest.approx(1.0), "operations")
