@@ -7,12 +7,23 @@ Phases (any failed check raises, and the script exits non-zero):
 
   1. device: needs CUDA; prints the card's name and power limit.
   2. build: compiles the CUDA element-matvec kernels from csrc/.
-  3. kernels vs plain: every kernel mode on the element tensors of the
-     h = 0.08 bowl3D model, against its plain PyTorch version, in f32
-     (bar 2e-6 max|y|) and f64 (bar 1e-12 max|y|); the atomics sum in
-     a different order on every run.  Times per application (CUDA
-     events around 20 calls in a row, median of 10 such batches after
-     warm-up).
+  3. kernels vs plain: every kernel case of the h = 0.08 bowl3D model
+     (each mode at each local size the step runs: the P2-P1 operator,
+     the P2 velocity block and viscous smoother, the P1-P1 coarse
+     saddle, its coupling, velocity block and viscous smoother, K2 on
+     the buoyancy and pressure spaces), through the model's own
+     prepared launch, against its plain PyTorch version in f32 (bar
+     2e-6 max|y|) and f64 (bar 1e-12 max|y|); the atomics sum in a
+     different order on every run.  Then, in f32, every case is timed
+     beside the CSR library call (tools/kernel_bench.py): wrapper time
+     (CUDA events around 20 calls in a row, median of 10 batches),
+     device time (profiler busy time over 20 calls), host µs per call
+     (1,000 calls before the synchronise) and the bound.
+  3c. edge cases: every phase-3 case with the cells in a shuffled order
+     (the widest block dof lists) and with blocks of 12 or 20 cells (a
+     ragged last block), against the plain versions at the phase-3
+     bars; after phase 5 the same cases of the 2D bowl2D model (P2-P1
+     triangles).
   4. slice: PGModel on bowl3D(0.08, 0.5, nz=9) in f32 (the bench.py
      mixing configuration): set_b, invert, 10 BDF2 steps.  Every state
      is finite, every solve stays under its iteration cap, every kernel
@@ -60,16 +71,17 @@ Phases (any failed check raises, and the script exits non-zero):
      Both: every state finite, every solve under its cap (8b: CG only),
      every kernel of the path launched, no plain version ran.
 
-Phases 3 and 8b also time each kernel mode beside one library call
-that computes the same function: cuSPARSE through torch.sparse.mm on
-the operator assembled to CSR here (never in the port).  Each kernel's
+Phases 3 and 8b time each kernel case beside one library call that
+computes the same function: cuSPARSE through torch.sparse.mm on the
+operator assembled to CSR here (never in the port).  Each kernel's
 bound is the larger of its bytes (each input read once, each output
 written once) over 3.35 TB/s and its multiply-adds over 67 TFLOP/s
-(H100 SXM f32 without tensor cores).
+(H100 SXM f32 without tensor cores).  Phases 4 and 8 print the
+launches per mode and local size (kernels.shape_launches).
 
-Phases run in the order 1, 2, 4a (build the slice), 3, 3b, 4b (step
-it), 6, 7, 5, 8a, 8b.  The last three lines are the card's name and
-power limit, a JSON object {"kernels": [...]}, and
+Phases run in the order 1, 2, 4a (build the slice), 3, 3c, 3b, 4b
+(step it), 6, 7, 5 (with the 2D edge cases), 8a, 8b.  The last three
+lines are the card's name and power limit, a JSON object {"kernels": [...]}, and
 {"ok": true, "device": {...}}.
 """
 
@@ -79,7 +91,6 @@ import json
 import pathlib
 import sys
 import time
-import warnings
 
 import numpy as np
 
@@ -95,7 +106,6 @@ SOURCES = {"saddle_matvec": "nupgcm_tpu_torch/csrc/element_matvec.cu",
            "stream_saddle": "nupgcm_tpu_torch/csrc/stream_probe.cu",
            "stream_probe": "nupgcm_tpu_torch/csrc/stream_probe.cu"}
 BARS = {"float32": 2e-6, "float64": 1e-12}
-F32_FLOP_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 RESUME_BAR = 1e-4          # phase 8a (f64), relative to max|u| and max|b|
 STEP_COUNTERS = ("saddle_full", "saddle_full_pp", "saddle_uu", "saddle_up", "scalar")
 STREAM_SHAPES = ((3, 128, False), (1, 512, True))  # K4 cases of profile_stream
@@ -106,163 +116,87 @@ def check(cond, msg):
         raise RuntimeError(msg)
 
 
-def median_ms(fn, reps=10, batch=20, warmup=5):
-    """ms per call: CUDA events around ``batch`` calls in a row, the
-    median over ``reps`` batches (the wrapper's host cost included
-    where it outlasts the kernel)."""
+def phase_kernels(model, K, card_name, tag="kernels", Kv_e=None):
+    """Every kernel case of the model (its own prepared launch over its
+    block tables) against its plain version in f32 and f64, then, in
+    f32, timed beside the CSR library call (``tools/kernel_bench``):
+    wrapper, device and host time, bound.  Returns per-(entry, mode)
+    records: the first (largest) case's numbers, every case in "cases"."""
     import torch
 
-    for _ in range(warmup):
-        fn()
-    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-              for _ in range(reps)]
-    for a, b in events:
-        a.record()
-        for _ in range(batch):
-            fn()
-        b.record()
-    torch.cuda.synchronize()
-    return float(np.median([a.elapsed_time(b) for a, b in events])) / batch
-
-
-def kernel_cases(model, K, Kv_e=None):
-    """(entry, kernel fn, plain fn, mode, label, args, len(x), n_u_nodes)
-    for every kernel mode at the model's shapes; ``Kv_e`` replaces the
-    static vertical diffusion in the evolution matrix."""
-    c, o, sp = model.const, model.ops, model.fe.spaces
-    nu, nv = sp.u_space.ndof, sp.p_space.ndof
-    theta = 2.0 / 3.0 * float(model.ts.dt) * model.params.a2e2 / model.params.mu_rho
-    evo = o["M_e"] + theta * (o["Kh_e"] + (o["Kv_e"] if Kv_e is None else Kv_e))
-    fine = (c["cd_u"], c["cd_p"])
-    vert = (c["cd_p"], c["cd_p"])
-    none = (c["cd_p"], c["cd_none"])
-    S = ("saddle_matvec", K.saddle_matvec, K.saddle_matvec_plain)
-    coarse = [] if "sc_uu" not in o else [
-        (*S, "uu", "P1 coarse viscous smoother",
-         (o["sc_visc_e"], None, None, None, *none), 3 * nv, nv),
-        (*S, "full_pp", "P1-P1 stabilized coarse saddle",
-         (o["sc_uu"], o["sc_up"], o["sc_pu"], o["sc_pp"], *vert), 4 * nv, nv)]
-    return [
-        (*S, "full", "P2-P1 inversion operator",
-         (o["A_uu_e"], o["A_up_e"], o["A_pu_e"], None, *fine), 3 * nu + sp.n_p, nu),
-        (*S, "up", "P2-P1 pressure coupling",
-         (None, o["A_up_e"], None, None, *fine), sp.n_p, nu),
-        (*S, "uu", "P2 velocity block",
-         (o["A_uu_e"], None, None, None, c["cd_u"], c["cd_none"]), 3 * nu, nu),
-        (*S, "uu", "P2 viscous smoother",
-         (o["visc_e"], None, None, None, c["cd_u"], c["cd_none"]), 3 * nu, nu),
-        *coarse,
-        ("scalar_matvec", K.scalar_matvec, K.scalar_matvec_plain, None,
-         f"P{sp.b_order} buoyancy evolution matrix", (evo, c["cd_b"]), sp.n_b, None),
-        ("scalar_matvec", K.scalar_matvec, K.scalar_matvec_plain, None,
-         "P1 pressure mass", (o["Mp_e"], c["cd_p"]), sp.n_p, None),
-    ]
-
-
-def bound(nbytes, flops):
-    """(ms, "bytes" or "operations"): the least time the card could take."""
-    from nupgcm_tpu_torch.tools._common import HBM_BYTES_PER_S
-
-    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
-    return 1e3 * max(t_b, t_f), "bytes" if t_b >= t_f else "operations"
-
-
-def nbytes(*ts):
-    return sum(t.numel() * t.element_size() for t in ts if t is not None)
-
-
-def operator_csr(mode, args, n_x, n_nodes):
-    """The operator of a kernel case assembled to CSR (COO triples
-    summed): the library yardstick's input."""
-    import torch
-
-    if mode is None:  # scalar
-        ae, cd = args
-        cdl = cd.long()
-        nl = cd.shape[1]
-        rows = cdl[:, :, None].expand(-1, nl, nl)
-        cols = cdl[:, None, :].expand(-1, nl, nl)
-        idx, vals, shape = [(rows, cols)], [ae], (n_x, n_x)
-    else:
-        uu, up, pu, pp, cd_u, cd_p = args
-        n3 = 3 * n_nodes
-        gu = (3 * cd_u.long()[:, :, None] + torch.arange(3, device=cd_u.device)).flatten(1)
-        gp = cd_p.long() + (0 if mode == "up" else n3)
-        blocks = {"uu": (uu, gu, gu), "up": (up, gu, gp), "pu": (pu, gp, gu),
-                  "pp": (pp, gp, gp)}
-        used = {"full": ("uu", "up", "pu"), "full_pp": ("uu", "up", "pu", "pp"),
-                "uu": ("uu",), "up": ("up",)}[mode]
-        idx, vals = [], []
-        for k in used:
-            a, r, cc = blocks[k]
-            idx.append((r[:, :, None].expand(a.shape), cc[:, None, :].expand(a.shape)))
-            vals.append(a)
-        shape = (n3 if mode == "up" else n_x, n_x)
-    ind = torch.stack([torch.cat([r.reshape(-1) for r, _ in idx]),
-                       torch.cat([cc.reshape(-1) for _, cc in idx])])
-    with warnings.catch_warnings():  # CSR support is marked beta
-        warnings.simplefilter("ignore", UserWarning)
-        coo = torch.sparse_coo_tensor(ind, torch.cat([v.reshape(-1) for v in vals]), shape)
-        return coo.coalesce().to_sparse_csr()
-
-
-def phase_kernels(model, K, rng, card_name, tag="kernels", Kv_e=None):
-    """Kernel vs plain (and vs the CSR library call) on the card;
-    returns per-(entry, mode) results of each mode's first (largest)
-    case."""
-    import torch
+    from nupgcm_tpu_torch.tools import kernel_bench as kb
 
     results = {}
-    for entry, kfn, pfn, mode, label, args, n_x, n_nodes in kernel_cases(model, K, Kv_e):
-        tail = () if mode is None else (mode, n_nodes)
-        x_np = rng.standard_normal(n_x)
-        for dtype, bar in ((torch.float32, 2e-6), (torch.float64, 1e-12)):
-            a = [t if t is None or not t.is_floating_point() else t.to(dtype) for t in args]
-            x = torch.as_tensor(x_np, dtype=dtype, device=model.device)
-            y = kfn(*a, x, *tail)
-            y0 = pfn(*a, x, *tail)
-            torch.cuda.synchronize()
-            check(torch.isfinite(y).all().item(), f"{entry} {mode} {label}: non-finite output")
-            err = float((y - y0).abs().max())
-            scale = float(y0.abs().max())
-            name = entry if mode is None else f"{entry}[{mode}]"
-            print(f"[{tag}] {name:24s} {label:32s} {str(dtype)[6:]}: "
-                  f"max|y-y_plain| = {err:.3e} = {err / scale:.2e} max|y| (bar {bar:.0e})",
-                  flush=True)
-            check(err <= bar * scale, f"{name} {label} {dtype}: kernel disagrees with plain")
-            if dtype == torch.float32:
-                rec = results.setdefault(name, {
-                    "name": name, "max_abs_err": 0.0, "entry": entry,
-                    "counter": "scalar" if mode is None else f"saddle_{mode}"})
-                rec["max_abs_err"] = max(rec["max_abs_err"], err)
-                if "ms" in rec:  # the first case of a mode is its largest
-                    continue
-                csr = operator_csr(mode, a, n_x, n_nodes)
-                lib = lambda: torch.sparse.mm(csr, x[:, None])
-                y_lib = lib()[:, 0]
-                torch.cuda.synchronize()
-                lib_err = float((y_lib - y0).abs().max())
-                check(lib_err <= bar * scale, f"{name} {label}: the CSR yardstick disagrees "
-                      f"with plain ({lib_err:.3e})")
-                # in turns: kernel, library, library, kernel; plain once
-                turns = [median_ms(f) for f in (lambda: kfn(*a, x, *tail), lib, lib,
-                                                 lambda: kfn(*a, x, *tail))]
-                ms, library_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
-                plain_ms = median_ms(lambda: pfn(*a, x, *tail))
-                blocks = [t for t in a if t is not None and t.is_floating_point()]
-                ints = [t for t in a if t is not None and not t.is_floating_point()]
-                out_len = 3 * n_nodes if mode == "up" else n_x
-                b_ms, b_by = bound(nbytes(*blocks, *ints, x) + 4 * out_len,
-                                   2 * sum(t.numel() for t in blocks))
-                print(f"[{tag}] {name:24s} {label:32s} f32: {ms:.4f} ms kernel "
-                      f"({turns[0]:.4f}, {turns[3]:.4f}), {library_ms:.4f} ms CSR "
-                      f"torch.sparse.mm ({turns[1]:.4f}, {turns[2]:.4f}; nnz {csr.values().numel()}), "
-                      f"{plain_ms:.4f} ms plain, bound {b_ms:.4f} ms ({b_by}) ({card_name})",
-                      flush=True)
-                rec.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
-                           bound_by=b_by)
-                del csr
+    for case in kb.kernel_cases(model, Kv_e):
+        name = case["entry"] + ("" if case["mode"] is None else f"[{case['mode']}]")
+        err = check_case(model, K, case, name, tag)
+        rec = kb.measure_case(model, K, case, log=lambda *a: print(*a, f"({card_name})",
+                                                                   flush=True), tag=tag)
+        check(rec["lib_rel_err"] <= BARS["float32"],
+              f"{name} {case['label']}: the CSR yardstick disagrees with plain")
+        top = results.setdefault(name, dict(rec, name=name, max_abs_err=0.0, cases=[],
+                                            counter="scalar" if case["mode"] is None
+                                            else f"saddle_{case['mode']}"))
+        top["max_abs_err"] = max(top["max_abs_err"], err)
+        top["cases"].append(rec)
     return results
+
+
+def check_case(model, K, case, name, tag):
+    """A case's kernel against its plain version in f32 and f64 at the
+    BARS of max|y|; returns the f32 max|y - y_plain|."""
+    import torch
+
+    from nupgcm_tpu_torch.tools import kernel_bench as kb
+
+    out = None
+    for dtype in (torch.float32, torch.float64):
+        kfn, pfn, _ = kb.case_fns(model, K, case, dtype)
+        y, y0 = kfn(), pfn()
+        torch.cuda.synchronize()
+        check(torch.isfinite(y).all().item(), f"{name} {case['label']}: non-finite output")
+        err = float((y - y0).abs().max())
+        scale = float(y0.abs().max())
+        bar = BARS[str(dtype)[6:]]
+        print(f"[{tag}] {name:24s} {case['label']:34s} {str(dtype)[6:]}: "
+              f"max|y-y_plain| = {err:.3e} = {err / scale:.2e} max|y| (bar {bar:.0e})",
+              flush=True)
+        check(err <= bar * scale, f"{name} {case['label']} {dtype}: kernel disagrees with plain")
+        out = err if out is None else out
+    return out
+
+
+def phase_edges(model, K, tag):
+    """Edge cases of the block tables against the plain versions: the
+    cells in a shuffled order (the widest block lists) and blocks of 12
+    (or 20) cells that leave a ragged last block, on every case of
+    ``model``."""
+    import torch
+
+    from nupgcm_tpu_torch.ops import blocks
+    from nupgcm_tpu_torch.tools import kernel_bench as kb
+
+    nc = model.const["cd_u"].shape[0]
+    perm = torch.as_tensor(np.random.default_rng(3).permutation(nc), device=model.device)
+    ragged = 12 if nc % 12 else 20
+    check(nc % ragged != 0, f"{tag}: blocks of {ragged} cells divide the cell count")
+    for case in kb.kernel_cases(model):
+        name = case["entry"] + ("" if case["mode"] is None else f"[{case['mode']}]")
+        for how in ("shuffled", "ragged"):
+            c = dict(case, label=f"{case['label']}, {how}")
+            if how == "shuffled":
+                c["blocks"] = tuple(None if t is None else t[perm] for t in case["blocks"])
+                c["cd"] = tuple(t[perm] for t in case["cd"])
+            cd = c["cd"]
+            if case["mode"] is None:
+                c["tables"] = (blocks.build(cd[0], ragged) if how == "ragged"
+                               else blocks.scalar_table(cd[0], 4))
+            elif how == "ragged":
+                c["tables"] = (blocks.build(cd[0], ragged),
+                               None if case["mode"] == "uu" else blocks.build(cd[1], ragged))
+            else:
+                c["tables"] = blocks.saddle_tables(cd[0], cd[1], case["mode"], 4)
+            check_case(model, K, c, name, tag)
 
 
 def probe_check(name, dtype, out, ref, scale, scale_name, card_name, kfn, pfn, work):
@@ -271,6 +205,8 @@ def probe_check(name, dtype, out, ref, scale, scale_name, card_name, kfn, pfn, w
     = (bytes, flops).  No single library call computes a probe's
     function: its library_ms is null."""
     import torch
+
+    from nupgcm_tpu_torch.tools import kernel_bench as kb
 
     torch.cuda.synchronize()
     check(bool(torch.isfinite(out).all()), f"{name}: non-finite output")
@@ -282,10 +218,12 @@ def probe_check(name, dtype, out, ref, scale, scale_name, card_name, kfn, pfn, w
     check(rel <= bar, f"{name} {dtype}: kernel disagrees with plain")
     rec = {"name": name, "entry": name, "max_abs_err": err}
     if dtype == torch.float32:
-        rec["ms"], rec["plain_ms"] = median_ms(kfn), median_ms(pfn)
-        rec["bound_ms"], rec["bound_by"] = bound(*work)
-        rec["library_ms"] = None
-        print(f"[probes] {name:22s} f32: {rec['ms']:.4f} ms kernel, "
+        rec["ms"], rec["plain_ms"] = kb.median_ms(kfn), kb.median_ms(pfn)
+        rec["device_ms"], rec["host_us"] = kb.device_ms(kfn), kb.host_us(kfn)
+        rec["bound_ms"], rec["bound_by"] = kb.bound(*work)
+        rec["library_ms"] = rec["library_device_ms"] = None
+        print(f"[probes] {name:22s} f32: {rec['ms']:.4f} ms kernel (device "
+              f"{rec['device_ms']:.4f} ms, host {rec['host_us']:.1f} us), "
               f"{rec['plain_ms']:.4f} ms plain, bound {rec['bound_ms']:.4f} ms "
               f"({rec['bound_by']}) ({card_name})", flush=True)
     return rec
@@ -294,6 +232,8 @@ def probe_check(name, dtype, out, ref, scale, scale_name, card_name, kfn, pfn, w
 def phase_probes(model, K, rng, card_name):
     """K3, K1 pinned and K4 vs their plain versions on the card."""
     import torch
+
+    from nupgcm_tpu_torch.tools.kernel_bench import nbytes
 
     o, c, fe = model.ops, model.const, model.fe
     n = fe.spaces.u_space.ndof
@@ -318,7 +258,9 @@ def phase_probes(model, K, rng, card_name):
         pin = min(uu.shape[0], K.LANES)
         x = torch.as_tensor(x_np, dtype=dtype, device="cuda")
         k1 = (uu[:pin], up[:pin], pu[:pin], c["cd_u"], c["cd_p"], x, n)
-        kfn = lambda: K.saddle_matvec(*k1[:3], None, *k1[3:6], "full", n, pinned=True)
+        launch = K.saddle_launch(*k1[:3], None, c["blk_fine"]["full"], "full", n, fe.spaces.n_p,
+                                 pinned=True)
+        kfn = lambda: launch(x)
         y0 = K.saddle_matvec_pinned_plain(*k1)
         per_cell = uu[0].numel() + up[0].numel() + pu[0].numel()
         rec = probe_check("saddle_matvec[pinned]", dtype, kfn(), y0, y0.abs().max(),
@@ -462,6 +404,8 @@ def run_checked(model, state, K, tag, card_name, inv_capped_ok=False, **run_kw):
     print(f"[{tag}] launches {launches} = per step "
           f"{ {k: round(v / n, 2) for k, v in launches.items() if v} }; plain calls {plain}",
           flush=True)
+    print(f"[{tag}] launches per step by mode and local size "
+          f"{ {k: round(v / n, 2) for k, v in K.shape_launches.items() if v} }", flush=True)
     capped = [i + 1 for i, a in enumerate(auxs) if a["inv_iters"] >= model.inv_opts["itmax"]]
     print(f"[{tag}] FGMRES at its cap ({model.inv_opts['itmax']}) in steps {capped}", flush=True)
     for i, a in enumerate(auxs):
@@ -582,7 +526,7 @@ def northstar_run(K, card_name, dtype):
           f"{tag}: the resumed run disagrees with the straight run")
 
 
-def phase_production(K, rng, card_name):
+def phase_production(K, card_name):
     """8b: the production configuration at h = 0.04: kernels vs plain
     on its tensors, then 26 steps with a refresh after 25."""
     import torch
@@ -610,7 +554,7 @@ def phase_production(K, rng, card_name):
     kv_q = model.forcings.conv_param.kappa_v(c["kv_q"], model._abz(state.b))
     Kv_e = asm.elem_stiffness(c["wq"], kv_q, c["Gb3"], (2,))
     check(float(kv_q.max()) > 10 * float(c["kv_q"].max()), "8b: no convective Kv")
-    phase_kernels(model, K, rng, card_name, tag="8b kernels", Kv_e=Kv_e)
+    results = phase_kernels(model, K, card_name, tag="8b kernels", Kv_e=Kv_e)
     del Kv_e, kv_q
     torch.cuda.reset_peak_memory_stats()
     # FGMRES stalls on this configuration from the first step, in the
@@ -623,6 +567,7 @@ def phase_production(K, rng, card_name):
           f" MiB; |u|max {float(state.u.abs().max()):.3e}, t {float(state.t):.4e}, "
           f"dt {float(state.dt):.4e} ({card_name})", flush=True)
     check(state.step == 26, "8b: the run stopped early")
+    return results
 
 
 def emit_tail(kernels, name_limit, kind, count):
@@ -642,6 +587,7 @@ def main():
     import nupgcm_tpu_torch as npg
     from nupgcm_tpu_torch.ops import build
     from nupgcm_tpu_torch.ops import kernels as K
+    from nupgcm_tpu_torch.tools import kernel_bench
     from nupgcm_tpu_torch.tools._common import card_name_limit, initial_b, mixing_setup
     from nupgcm_tpu_torch.tools.northstar import rel_l2
 
@@ -660,9 +606,13 @@ def main():
     print(f"[build] {', '.join(sorted(set(SOURCES.values())))} -> "
           f"{build.library_path().relative_to(ROOT)} in "
           f"{time.perf_counter() - t0:.2f} s (nvcc {build.build_seconds} s)", flush=True)
-    for line in (build.build_log or "").splitlines():
-        if "Compiling entry" in line or "registers" in line or "spill" in line:
-            print(f"[build] {line.strip()}", flush=True)
+    log = (build.build_log or "").splitlines()
+    regs = [int(w.split()[0]) for line in log if "Used" in line
+            for w in [line.split("Used", 1)[1]]]
+    spills = [line.strip() for line in log if "spill" in line and " 0 bytes spill" not in line]
+    print(f"[build] ptxas: {sum('Compiling entry' in line for line in log)} kernels, "
+          f"{min(regs, default=0)}-{max(regs, default=0)} registers, "
+          f"{len(spills)} with spills {spills[:3]}", flush=True)
 
     # 4a. the slice model (its element tensors feed phase 3)
     t0 = time.perf_counter()
@@ -677,8 +627,9 @@ def main():
           f"{model.inner_method}, saddle_coarse_inner {model.saddle_coarse_inner}; "
           f"host+device build {build_s:.2f} s", flush=True)
 
-    # 3. kernels vs plain on the slice's tensors
-    results = phase_kernels(model, K, np.random.default_rng(0), name_limit)
+    # 3. kernels vs plain on the slice's tensors, 3c. their edge cases
+    results = phase_kernels(model, K, name_limit)
+    phase_edges(model, K, "edges")
 
     # 3b. the measurement probes vs plain
     probes = phase_probes(model, K, np.random.default_rng(1), name_limit)
@@ -716,6 +667,8 @@ def main():
           f"peak device memory {peak / 2**20:.1f} MiB; launches {launches} = per step "
           f"{ {k: v / 10 for k, v in launches.items() if v} }; plain calls {plain} "
           f"({name_limit})", flush=True)
+    print(f"[slice] launches per step by mode and local size "
+          f"{ {k: v / 10 for k, v in K.shape_launches.items() if v} }", flush=True)
     check(all(launches[k] > 0 for k in STEP_COUNTERS),
           f"a kernel of the path never launched: {launches}")
     check(all(n == 0 for n in plain.values()), f"a plain version ran on the card: {plain}")
@@ -753,20 +706,25 @@ def main():
     check(st.step == n_steps and abs(float(st.t) - float(ref["t"])) < 1e-5,
           "golden run stopped at another time")
     check(eb < 1e-3 and eu < 1e-3, "golden run disagrees with the golden file")
+    for case in kernel_bench.kernel_cases(golden):  # 3c on P2-P1 triangles
+        check_case(golden, K, case, case["entry"] + ("" if case["mode"] is None
+                                                     else f"[{case['mode']}]"), "edges 2D")
+    phase_edges(golden, K, "edges 2D")
     del golden, st
     torch.cuda.empty_cache()
 
     # 8. full physics
     phase_northstar_full(K, name_limit)
     torch.cuda.empty_cache()
-    phase_production(K, np.random.default_rng(2), name_limit)
+    phase_production(K, name_limit)
 
     check("jax" not in sys.modules, "JAX was imported")
     kernels = [
         {"name": r["name"], "route": "cuda", "source": SOURCES[r["entry"]],
          "replaces": REPLACES[r["entry"]], "launches": r["launches"],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+         "device_ms": r["device_ms"], "library_device_ms": r["library_device_ms"]}
         for r in (*results.values(), *probes.values())]
     emit_tail(kernels, name_limit, kind, torch.cuda.device_count())
 

@@ -39,7 +39,7 @@ import torch
 
 from ..fem import assembly as asm
 from ..fem.spaces import _eval_coeff
-from ..ops import build
+from ..ops import blocks, build
 from ..ops.element import ElementOperator, SaddleOperator
 from ..ops.sparse import MaskedOperator
 from ..solvers.cg import cg
@@ -311,6 +311,16 @@ class PGModel:
         c["cd_p"] = self._I(fe.cd_p)
         c["cd_b"] = self._I(fe.cd_b)
         c["cd_none"] = self._I(np.zeros((fe.n_cells_padded, 0)))
+        # block tables of the element-matvec kernel (ops/blocks.py), one
+        # per operator family; the per-step operators reuse them
+        item = torch.empty((), dtype=self.dtype).element_size()
+        c["blk_fine"] = blocks.operator_tables(fe.cd_u, fe.cd_p, ("full", "up", "uu"), item,
+                                               self.device)
+        c["blk_coarse"] = (blocks.operator_tables(fe.cd_p, fe.cd_p, ("full_pp", "up", "uu"),
+                                                  item, self.device)
+                           if self.saddle_coarse else None)
+        c["blk_b"] = blocks.scalar_table(fe.cd_b, item, self.device)
+        c["blk_p"] = blocks.scalar_table(fe.cd_p, item, self.device)
         c["h_cells"] = T(fe.h_cells)
         c["Gb3"] = asm.physical_grads(c["invJT"], c["dphi_b"], c["embed"])
 
@@ -566,7 +576,7 @@ class PGModel:
         nv = fe.spaces.p_space.ndof
         return SaddleOperator(
             uu=ops["sc_uu"], up=ops["sc_up"], pu=ops["sc_pu"], pp=ops["sc_pp"],
-            cd_u=c["cd_p"], cd_p=c["cd_p"], n_u_nodes=nv, n_p=nv)
+            cd_u=c["cd_p"], cd_p=c["cd_p"], n_u_nodes=nv, n_p=nv, tables=c["blk_coarse"])
 
     def _saddle_coarse_solver(self, ops, mp_op):
         """Coarse solve of the element-local path: the coarse-level
@@ -711,7 +721,8 @@ class PGModel:
         c = self.const
         return SaddleOperator(uu=coarse_e, up=None, pu=None, cd_u=c["cd_p"],
                               cd_p=c["cd_none"],
-                              n_u_nodes=self.fe.spaces.p_space.ndof)
+                              n_u_nodes=self.fe.spaces.p_space.ndof,
+                              tables=c["blk_coarse"])
 
     def _build_operators(self):
         fe, c = self.fe, self.const
@@ -778,13 +789,14 @@ class PGModel:
         c, sp = self.const, self.fe.spaces
         return SaddleOperator(uu=ops["A_uu_e"], up=ops["A_up_e"], pu=ops["A_pu_e"],
                               cd_u=c["cd_u"], cd_p=c["cd_p"],
-                              n_u_nodes=sp.u_space.ndof, n_p=sp.n_p)
+                              n_u_nodes=sp.u_space.ndof, n_p=sp.n_p, tables=c["blk_fine"])
 
     def _visc_operator(self, visc_e) -> SaddleOperator:
         c = self.const
         return SaddleOperator(uu=visc_e, up=None, pu=None, cd_u=c["cd_u"],
                               cd_p=c["cd_none"],
-                              n_u_nodes=self.fe.spaces.u_space.ndof)
+                              n_u_nodes=self.fe.spaces.u_space.ndof,
+                              tables=c["blk_fine"])
 
     def _b_matvec(self, ops, b_full):
         """B b: buoyancy -> vertical momentum rows of the combined
@@ -797,11 +809,12 @@ class PGModel:
     def _evo_matrix(self, ops, theta, Kv_e=None) -> ElementOperator:
         Kv_e = ops["Kv_e"] if Kv_e is None else Kv_e
         return ElementOperator(Ae=ops["M_e"] + theta * (ops["Kh_e"] + Kv_e),
-                               cd=self.const["cd_b"], n=self.fe.spaces.n_b)
+                               cd=self.const["cd_b"], n=self.fe.spaces.n_b,
+                               table=self.const["blk_b"])
 
     def _mp_operator(self, ops) -> ElementOperator:
         return ElementOperator(Ae=ops["Mp_e"], cd=self.const["cd_p"],
-                               n=self.fe.spaces.n_p)
+                               n=self.fe.spaces.n_p, table=self.const["blk_p"])
 
     def _make_inv_precond(self, ops):
         """(M, flexible) for the inversion FGMRES."""

@@ -104,14 +104,10 @@ def load():
         compile_library(path)
     lib = ctypes.CDLL(str(path))
     vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    for name in ("nupgcm_saddle_matvec_f32", "nupgcm_saddle_matvec_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = [vp] * 10 + [ll, i, i, i, i, vp]
-        fn.restype = i
-    for name in ("nupgcm_scalar_matvec_f32", "nupgcm_scalar_matvec_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = [vp] * 4 + [ll, i, vp]
-        fn.restype = i
+    lib.nupgcm_em_prepare.argtypes = [vp]
+    lib.nupgcm_em_prepare.restype = i
+    lib.nupgcm_em_apply.argtypes = [vp] * 5
+    lib.nupgcm_em_apply.restype = i
     for name in ("nupgcm_stream_saddle_f32", "nupgcm_stream_saddle_f64"):
         fn = getattr(lib, name)
         fn.argtypes = [vp] * 6 + [ll, i, i, i, vp]

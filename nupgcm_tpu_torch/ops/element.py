@@ -7,15 +7,21 @@ The element tensors are exactly the ones the assembly produces
 ``up_matvec`` go through the kernel wrappers of ``ops/kernels.py``
 (the CUDA kernels on a CUDA device, their plain versions on the CPU);
 ``diagonal`` is plain PyTorch, computed when a preconditioner is built.
+
+An operator checks its tensors' shapes and types once, at
+construction.  On a CUDA device it also prepares its kernel launch
+there (``kernels.saddle_launch`` / ``scalar_launch``) over the block
+tables it is given (``ops/blocks.py``; the model builds them once with
+its constants), so each application costs one ctypes call.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
-from . import kernels
+from . import blocks, kernels
 
 
 @dataclass
@@ -30,8 +36,19 @@ class ElementOperator:
     Ae: torch.Tensor
     cd: torch.Tensor
     n: int
+    table: blocks.BlockTable = None  # built here when None (CUDA only)
+    _launch: kernels.PreparedLaunch = field(default=None, init=False, repr=False)
+
+    def __post_init__(self):
+        kernels.check_scalar(self.Ae, self.cd)
+        if self.Ae.is_cuda:
+            if self.table is None:
+                self.table = blocks.scalar_table(self.cd, self.Ae.element_size())
+            self._launch = kernels.scalar_launch(self.Ae, self.table, self.n)
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        if self._launch is not None:
+            return self._launch(x)
         return kernels.scalar_matvec(self.Ae, self.cd, x)
 
     def diagonal(self) -> torch.Tensor:
@@ -64,21 +81,46 @@ class SaddleOperator:
     n_u_nodes: int
     n_p: int = 0
     pp: torch.Tensor = None
+    tables: dict = None  # {mode: (velocity, pressure) block tables}; built when None (CUDA)
+    _launch: kernels.PreparedLaunch = field(default=None, init=False, repr=False)
+    _up_launch: kernels.PreparedLaunch = field(default=None, init=False, repr=False)
+
+    @property
+    def mode(self) -> str:
+        if self.up is None:
+            return "uu"
+        return "full" if self.pp is None else "full_pp"
+
+    def __post_init__(self):
+        kernels.check_saddle(self.uu, self.up, self.pu, self.pp, self.cd_u, self.cd_p,
+                             self.mode)
+        if self.uu.is_cuda:
+            if self.tables is None:
+                modes = (self.mode,) if self.up is None else (self.mode, "up")
+                self.tables = blocks.operator_tables(self.cd_u, self.cd_p, modes,
+                                                     self.uu.element_size())
+            self._launch = kernels.saddle_launch(self.uu, self.up, self.pu, self.pp,
+                                                 self.tables[self.mode], self.mode,
+                                                 self.n_u_nodes, self.n_p)
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        if self.up is None:
-            mode = "uu"
-        else:
-            mode = "full" if self.pp is None else "full_pp"
+        if self._launch is not None:
+            return self._launch(x)
         return kernels.saddle_matvec(self.uu, self.up, self.pu, self.pp,
-                                     self.cd_u, self.cd_p, x, mode, self.n_u_nodes)
+                                     self.cd_u, self.cd_p, x, self.mode, self.n_u_nodes)
 
     def up_matvec(self, p_vec: torch.Tensor) -> torch.Tensor:
         """Coupling block alone: velocity rows of [0, up; 0, 0] @ [0; p]
         (the pressure-gradient term).  Used by the block-triangular
         Stokes preconditioner."""
-        return kernels.saddle_matvec(None, self.up, None, None, self.cd_u,
-                                     self.cd_p, p_vec, "up", self.n_u_nodes)
+        if self._launch is None:
+            return kernels.saddle_matvec(None, self.up, None, None, self.cd_u,
+                                         self.cd_p, p_vec, "up", self.n_u_nodes)
+        if self._up_launch is None:
+            self._up_launch = kernels.saddle_launch(None, self.up, None, None,
+                                                    self.tables["up"], "up", self.n_u_nodes,
+                                                    self.n_p)
+        return self._up_launch(p_vec)
 
     def diagonal(self) -> torch.Tensor:
         """Assembled diagonal: velocity (3 n_u_nodes), then pressure

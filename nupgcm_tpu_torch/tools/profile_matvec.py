@@ -36,8 +36,9 @@ from ._common import (HBM_BYTES_PER_S, bowl_model, device_name, device_times,
 
 N1, N2 = 10, 60
 VARIANTS = ("full", "uu", "stream", "compute")
-KERNEL = {"full": "saddle_kernel", "uu": "saddle_kernel", "stream": "stream_saddle_kernel",
-          "compute": "saddle_kernel"}  # each variant's own kernel, by name
+KERNEL = {"full": "block_matvec_kernel", "uu": "block_matvec_kernel",
+          "stream": "stream_saddle_kernel",
+          "compute": "block_matvec_kernel"}  # each variant's own kernel, by name
 NOT_APPLICABLE = {v: "not applicable: TPU window-plan variants"
                   for v in ("nodedup", "nobucket")}
 
@@ -79,15 +80,25 @@ def run(h=0.05, nz=8, model=None, device="cuda", dtype=torch.float32, only=None,
 
     pin = min(uu.shape[0], K.LANES)
     uu1, up1, pu1 = uu[:pin], up[:pin], pu[:pin]
+    n_p = fe.spaces.n_p
+
+    def op(mode, blocks, pinned=False):
+        """The model's own launch path on the card (a prepared launch
+        over its block tables); the plain version elsewhere."""
+        if torch.device(device).type == "cuda":
+            return K.saddle_launch(*blocks, c["blk_fine"][mode], mode, n,
+                                   0 if mode == "uu" else n_p, pinned=pinned)
+        cdp = c["cd_none"] if mode == "uu" else cd_p
+        return lambda x: K.saddle_matvec(*blocks, cd_u, cdp, x, mode, n, pinned=pinned)
+
+    full = op("full", (uu, up, pu, None))
+    velocity = op("uu", (uu, None, None, None))
+    pinned = op("full", (uu1, up1, pu1, None), pinned=True)
     fns = {
-        "full": loop(lambda x: K.saddle_matvec(uu, up, pu, None, cd_u, cd_p, x,
-                                               "full", n)),
-        "uu": loop(lambda x: torch.cat([
-            K.saddle_matvec(uu, None, None, None, cd_u, c["cd_none"], x[:n3], "uu", n),
-            x[n3:]])),
+        "full": loop(full),
+        "uu": loop(lambda x: torch.cat([velocity(x[:n3]), x[n3:]])),
         "stream": stream_loop,
-        "compute": loop(lambda x: K.saddle_matvec(uu1, up1, pu1, None, cd_u, cd_p, x,
-                                                  "full", n, pinned=True)),
+        "compute": loop(pinned),
     }
     ms, gb_s, first_s, device_ms, kernel_ms = {}, {}, {}, {}, {}
     for name in VARIANTS:

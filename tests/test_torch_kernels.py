@@ -152,8 +152,8 @@ def test_element_operator_diagonals_match(fe):
         p_plan=fe.vec_plan_p, n_u_nodes=sp.u_space.ndof)
     from nupgcm_tpu_torch.ops.element import SaddleOperator as TSaddle
 
-    top = TSaddle(uu=torch.from_numpy(uu), up=torch.zeros(nc, 30, 4),
-                  pu=torch.zeros(nc, 4, 30), pp=torch.from_numpy(pp),
+    top = TSaddle(uu=torch.from_numpy(uu), up=torch.zeros(nc, 30, 4, dtype=torch.float64),
+                  pu=torch.zeros(nc, 4, 30, dtype=torch.float64), pp=torch.from_numpy(pp),
                   cd_u=torch.from_numpy(fe.cd_u.astype(np.int32)),
                   cd_p=torch.from_numpy(fe.cd_p.astype(np.int32)),
                   n_u_nodes=sp.u_space.ndof, n_p=sp.n_p)

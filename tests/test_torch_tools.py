@@ -241,20 +241,24 @@ def test_chip_smoke_fails_without_cuda_or_without_the_repo(tmp_path):
 
 
 def test_chip_smoke_csr_yardstick_matches_plain(small):
-    """The library yardstick of chip_smoke.py: every kernel case's
-    operator assembled to CSR gives the plain version's product, and
-    the bound counts each input once."""
-    cs = _chip_smoke()
+    """The library yardstick of chip_smoke.py (tools/kernel_bench.py):
+    every kernel case's operator assembled to CSR gives the plain
+    version's product, and the bound counts each input once."""
+    from nupgcm_tpu_torch.tools import kernel_bench as cs
+
     rng = np.random.default_rng(0)
-    cases = cs.kernel_cases(small, K)
-    assert {c[3] for c in cases} == {"full", "up", "uu", "full_pp", None}
-    for entry, _, pfn, mode, label, args, n_x, n_nodes in cases:
-        tail = () if mode is None else (mode, n_nodes)
-        x = torch.as_tensor(rng.standard_normal(n_x))
-        y0 = pfn(*args, x, *tail)
-        y = torch.sparse.mm(cs.operator_csr(mode, args, n_x, n_nodes), x[:, None])[:, 0]
-        assert y.shape == y0.shape, label
-        assert float((y - y0).abs().max()) <= 1e-12 * float(y0.abs().max()), label
+    cases = cs.kernel_cases(small)
+    assert {c["mode"] for c in cases} == {"full", "up", "uu", "full_pp", None}
+    for case in cases:
+        x = torch.as_tensor(rng.standard_normal(case["n_x"]))
+        blocks = case["blocks"]
+        if case["mode"] is None:
+            y0 = K.scalar_matvec_plain(*blocks, *case["cd"], x)
+        else:
+            y0 = K.saddle_matvec_plain(*blocks, *case["cd"], x, case["mode"], case["n_nodes"])
+        y = torch.sparse.mm(cs.operator_csr(case, blocks, case["n_x"]), x[:, None])[:, 0]
+        assert y.shape == y0.shape, case["label"]
+        assert float((y - y0).abs().max()) <= 1e-12 * float(y0.abs().max()), case["label"]
     ms, by = cs.bound(3.35e9, 0)
     assert (ms, by) == (pytest.approx(1.0), "bytes")
     assert cs.bound(0, 67e9) == (pytest.approx(1.0), "operations")
