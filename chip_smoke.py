@@ -70,6 +70,42 @@ Phases (any failed check raises, and the script exits non-zero):
          FGMRES stalls from the first step in both packages (reported).
      Both: every state finite, every solve under its cap (8b: CG only),
      every kernel of the path launched, no plain version ran.
+  9. the rest of the single-device package:
+     9a. sphere at full width: sphere_mesh(8) written with write_msh to
+         out/ and read back with read_msh; the sphere example's model
+         (eps = 0.1, dt = 2e-3, f = z, no-slip wall, b = 0 at the
+         surface, the equatorial b0) in f64 with the solves' absolute
+         tolerances at 0 (with the default 1e-6 the steps' residuals
+         start below them and no step iterates; f32 cannot resolve a
+         1e-6 cut of them): set_b, invert, 10 BDF2 steps, each of
+         which must iterate in both solves (112,724 inversion DoF, the
+         iterative saddle coarse with the aggregate level); DoF,
+         branch, iterations, steps/s, peak memory.
+     9b. sphere golden: sphere_mesh(4) in tests/test_sphere.py's
+         configuration, 10 f32 BDF2 steps against
+         tests/data/sphere_n4_10.npz (JAX, CPU, f64, the same run;
+         FE-integral relative L2, a squared-norm ratio, below 1e-9 for
+         u and b).
+     9c. the u-block two-grid (saddle_coarse=False, twogrid=True), f32:
+         on the slice mesh bowl3D(0.08, 0.5, nz=9) the element coarse
+         branch with inner CG (3 n_vertices > coarse_dense_max), invert
+         + 5 steps, the P1 vector block (saddle_uu[4,0]) launched; on
+         bowl3D(0.25, 0.5, nz=4) the dense Cholesky branch, invert + 3
+         steps.
+     9d. channel and analysis: the channel_spinup example's model at its
+         h = 0.06 (21,219 DoF), 50 f32 BDF2 steps; save_vtk to out/,
+         overturning_streamfunction on Grid3.from_mesh(mesh, 32, 64,
+         32) and cfl_map, every output finite; then tools.eigen's
+         evolution_spectrum and preconditioned_inversion_spectrum (k =
+         6) on the same mesh in f64, with their matvec counts.
+     Each model (9a, both 9c branches, 9d): before its run, every kernel
+     case of its path (each mode and local size, the two-grid's P1
+     vector block and the channel's periodic dof tables included) on
+     its own tensors against the plain version at the phase-3 bars.
+     Each run: every state finite, every solve under its cap, every
+     kernel of its path launched (counts set to 0 just before it, read
+     just after; the invert of 9a and 9c read on its own), no plain
+     version ran.
 
 Phases 3 and 8b time each kernel case beside one library call that
 computes the same function: cuSPARSE through torch.sparse.mm on the
@@ -80,7 +116,7 @@ written once) over 3.35 TB/s and its multiply-adds over 67 TFLOP/s
 launches per mode and local size (kernels.shape_launches).
 
 Phases run in the order 1, 2, 4a (build the slice), 3, 3c, 3b, 4b
-(step it), 6, 7, 5 (with the 2D edge cases), 8a, 8b.  The last three
+(step it), 6, 7, 5 (with the 2D edge cases), 8a, 8b, 9a-9d.  The last three
 lines are the card's name and power limit, a JSON object {"kernels": [...]}, and
 {"ok": true, "device": {...}}.
 """
@@ -108,6 +144,10 @@ SOURCES = {"saddle_matvec": "nupgcm_tpu_torch/csrc/element_matvec.cu",
 BARS = {"float32": 2e-6, "float64": 1e-12}
 RESUME_BAR = 1e-4          # phase 8a (f64), relative to max|u| and max|b|
 STEP_COUNTERS = ("saddle_full", "saddle_full_pp", "saddle_uu", "saddle_up", "scalar")
+INVERT_COUNTERS = STEP_COUNTERS[:4]
+# 9b, FE rel-L2 (a squared-norm ratio, so about 3e-5 relative) of f32
+# against the f64 golden; f32 reads about 1e-14 (u) and 1e-16 (b)
+SPHERE_BAR = 1e-9
 STREAM_SHAPES = ((3, 128, False), (1, 512, True))  # K4 cases of profile_stream
 
 
@@ -362,12 +402,35 @@ def phase_trace(model, state, card_name):
     return state
 
 
+def check_kernels(model, K, tag):
+    """Every kernel case of ``model`` (each mode and local size its path
+    launches, on its own tensors) against its plain version in f32 and
+    f64 at BARS, without timing."""
+    from nupgcm_tpu_torch.tools import kernel_bench as kb
+
+    for case in kb.kernel_cases(model):
+        check_case(model, K, case, case["entry"] + ("" if case["mode"] is None
+                                                    else f"[{case['mode']}]"), tag)
+
+
+def check_path(model, K, tag, counters=STEP_COUNTERS):
+    """The counts since the last reset: every kernel of ``counters`` on
+    the model's path launched and no plain version ran.  Returns the
+    launches."""
+    launches, plain = dict(K.launches), dict(K.plain_calls)
+    missing = [k for k in counters if not launches[k]
+               and not (k == "saddle_full_pp" and "sc_uu" not in model.ops)]
+    check(not missing, f"{tag}: {missing} never launched")
+    check(all(v == 0 for v in plain.values()), f"{tag}: a plain version ran on the card: {plain}")
+    return launches
+
+
 def run_checked(model, state, K, tag, card_name, inv_capped_ok=False, **run_kw):
     """``model.run(state, **run_kw)`` with the kernel counts set to 0
     just before and read just after.  Checks every step's CG solve
     against its cap (and FGMRES's, unless ``inv_capped_ok``), a finite
     final state, that every kernel of the path launched and that no
-    plain version ran.  Returns the state."""
+    plain version ran.  Returns the state and the steps' aux records."""
     import torch
 
     from nupgcm_tpu_torch.tools.production import run_logged
@@ -414,11 +477,8 @@ def run_checked(model, state, K, tag, card_name, inv_capped_ok=False, **run_kw):
     check(inv_capped_ok or not capped, f"{tag}: FGMRES hit its cap")
     for f in ("u", "p", "b", "u_prev", "b_prev"):
         check(bool(torch.isfinite(getattr(state, f)).all()), f"{tag}: non-finite {f}")
-    path = [k for k in STEP_COUNTERS
-            if not (k == "saddle_full_pp" and "sc_uu" not in model.ops)]
-    check(all(launches[k] > 0 for k in path), f"{tag}: a kernel of the path never launched")
-    check(all(v == 0 for v in plain.values()), f"{tag}: a plain version ran on the card")
-    return state
+    check_path(model, K, tag)
+    return state, auxs
 
 
 def phase_northstar_full(K, card_name):
@@ -481,7 +541,7 @@ def northstar_run(K, card_name, dtype):
                 changed[k].append(i)
                 prev[k] = m.ops[k].clone()
 
-    state = run_checked(
+    state, _ = run_checked(
         model, model.rest_state(), K, tag, card_name, n_info=0, max_steps=30,
         n_precond_refresh=10, n_save=1, save_callback=save, n_plot=1, plot_callback=watch)
     peak = torch.cuda.max_memory_allocated()
@@ -561,13 +621,197 @@ def phase_production(K, card_name):
     # JAX package as in the port (tests/test_torch_production.py::
     # test_production_aggregate_branch_matches): its cap is reported,
     # not held
-    state = run_checked(model, state, K, "8b", card_name, inv_capped_ok=True,
-                                 n_info=0, max_steps=26, n_precond_refresh=25)
+    state, _ = run_checked(model, state, K, "8b", card_name, inv_capped_ok=True,
+                           n_info=0, max_steps=26, n_precond_refresh=25)
     print(f"[8b] peak device memory over the run {torch.cuda.max_memory_allocated() / 2**20:.1f}"
           f" MiB; |u|max {float(state.u.abs().max()):.3e}, t {float(state.t):.4e}, "
           f"dt {float(state.dt):.4e} ({card_name})", flush=True)
     check(state.step == 26, "8b: the run stopped early")
     return results
+
+
+def phase_sphere(K, card_name):
+    """9a: the sphere example's model on sphere_mesh(8), through
+    write_msh and read_msh, in f64 with the solves' absolute tolerances
+    at 0; 9b: sphere_mesh(4) against the JAX golden in f32."""
+    import torch
+
+    import nupgcm_tpu_torch as npg
+    from nupgcm_tpu_torch.examples import sphere
+    from nupgcm_tpu_torch.tools.northstar import rel_l2
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = npg.generators.sphere_mesh(8)
+    path = ROOT / "out" / "sphere_8.msh"
+    path.parent.mkdir(exist_ok=True)
+    npg.write_msh(gen, str(path))
+    mesh = npg.read_msh(str(path))
+    check(mesh.n_cells == gen.n_cells and np.allclose(mesh.coords, gen.coords, atol=1e-12)
+          and sorted(mesh.tagged) == sorted(gen.tagged), "9a: the .msh round trip changed the mesh")
+    # At this width the steps' starting residuals lie below the example's
+    # absolute tolerances (1e-6): with them no step takes an iteration
+    # and b stays put.  With atol = 0 every solve cuts its residual by
+    # rtol (1e-6), which f32 cannot resolve (the per-step change of b is
+    # near its rounding), so 9a runs in f64.
+    model = sphere.build_model(mesh, eps=0.1, dt=2e-3, device="cuda", dtype=torch.float64)
+    model.retune(evo_atol=0.0, inv_atol=0.0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    fe = model.fe
+    print(f"[9a] sphere_mesh(8) via write_msh/read_msh ({path.relative_to(ROOT)}): "
+          f"{mesh.n_vertices} vertices, {mesh.n_cells} cells, {fe.n_inv} inversion DoF; "
+          f"preconditioner {model.preconditioner_branch}, inner_method {model.inner_method}; "
+          f"f64, atol 0; build {build_s:.2f} s ({card_name})", flush=True)
+    check(fe.n_inv == 112724, f"9a: {fe.n_inv} inversion DoF, not 112,724")
+    check(model.preconditioner_branch == "iterative saddle coarse + L2 aggregate level",
+          "9a: not the iterative saddle coarse + aggregate branch")
+    check_kernels(model, K, "9a kernels")
+    torch.cuda.synchronize()
+    K.reset_counts()
+    t0 = time.perf_counter()
+    state = model.set_b(model.rest_state(), sphere.b0)
+    u, p, stats = model._invert_pure(model.ops, state.b, torch.zeros_like(model.ops["s"]))
+    state = npg.State(u=u, p=p, b=state.b, u_prev=state.u_prev, b_prev=state.b_prev,
+                      t=state.t, dt=state.dt, step=state.step)
+    torch.cuda.synchronize()
+    inv_s = time.perf_counter() - t0
+    launches = check_path(model, K, "9a invert", INVERT_COUNTERS)
+    check(bool(torch.isfinite(state.u).all()), "9a: invert gave a non-finite flow")
+    check(stats.converged, "9a: the invert's FGMRES did not converge")
+    print(f"[9a] set_b + invert {inv_s:.3f} s: FGMRES {stats.iterations} iterations "
+          f"(residual {stats.residual:.2e}), |u|max {float(state.u.abs().max()):.3e}; launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    b_inv = state.b.clone()
+    state, auxs = run_checked(model, state, K, "9a", card_name, n_info=0, max_steps=10)
+    check(state.step == 10, "9a: the run stopped early")
+    check(all(a["evo_iters"] > 0 and a["inv_iters"] > 0 for a in auxs),
+          "9a: a step's solve took no iteration")
+    print(f"[9a] max|b_10 - b_0| = {float((state.b - b_inv).abs().max()):.3e}; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB ({card_name})",
+          flush=True)
+    del model, state
+    torch.cuda.empty_cache()
+
+    # 9b. the golden of tests/test_sphere.py's configuration
+    ref = np.load(ROOT / "tests" / "data" / "sphere_n4_10.npz")
+    model = sphere.build_model(npg.generators.sphere_mesh(4), eps=0.2, dt=1e-3,
+                               device="cuda", dtype=torch.float32)
+    state, _ = run_checked(model, model.set_b(model.rest_state(), sphere.blob), K, "9b",
+                           card_name, n_info=0, max_steps=10)
+    fe = model.fe
+    us, bs = fe.spaces.u_space, fe.spaces.b_space
+    ref_u = np.stack([us.from_original_order(ref["u"][:, c]) for c in range(3)], axis=1)
+    eu = rel_l2(fe, state.u.double().cpu().numpy(), ref_u, fe.cd_u, fe.tab_u.phi)
+    eb = rel_l2(fe, state.b.double().cpu().numpy(), bs.from_original_order(ref["b"]),
+                fe.cd_b, fe.tab_b.phi)
+    print(f"[9b] sphere_mesh(4), {fe.n_inv} DoF, {state.step} f32 steps to t = "
+          f"{float(state.t):.6f} (golden {float(ref['t']):.6f}): FE rel-L2 u = {eu:.3e}, "
+          f"b = {eb:.3e} (bar {SPHERE_BAR:.0e}) ({card_name})", flush=True)
+    check(state.step == int(ref["steps"]) == 10, "9b: the run stopped at another step")
+    check(eu < SPHERE_BAR and eb < SPHERE_BAR, "9b: the state disagrees with the golden file")
+
+
+def phase_twogrid(K, card_name):
+    """9c: the u-block two-grid on both coarse branches."""
+    import torch
+
+    import nupgcm_tpu_torch as npg
+    from nupgcm_tpu_torch.tools._common import initial_b, mixing_setup
+
+    for (h, nz), n_steps, branch in (((0.08, 9), 5, "element coarse + CG"),
+                                     ((0.25, 4), 3, "dense coarse")):
+        tag = f"9c {branch.split()[0]}"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = mixing_setup(npg.generators.bowl3D(h, 0.5, nz=nz), "cuda", torch.float32,
+                             saddle_coarse=False, twogrid=True)
+        torch.cuda.synchronize()
+        fe = model.fe
+        print(f"[{tag}] bowl3D({h}, 0.5, nz={nz}): {fe.mesh.n_vertices} vertices, "
+              f"{fe.n_inv} inversion DoF; preconditioner {model.preconditioner_branch}, "
+              f"inner_iters {model.inner_iters}; build {time.perf_counter() - t0:.2f} s "
+              f"({card_name})", flush=True)
+        check(model.preconditioner_branch == f"u-block two-grid, {branch}",
+              f"{tag}: took {model.preconditioner_branch}")
+        check_kernels(model, K, f"{tag} kernels")
+        torch.cuda.synchronize()
+        K.reset_counts()
+        state = model.invert(model.set_b(model.rest_state(), initial_b))
+        torch.cuda.synchronize()
+        check_path(model, K, f"{tag} invert", INVERT_COUNTERS)
+        check(bool(torch.isfinite(state.u).all()), f"{tag}: invert gave a non-finite flow")
+        state, _ = run_checked(model, state, K, tag, card_name, n_info=0, max_steps=n_steps)
+        check(state.step == n_steps, f"{tag}: the run stopped early")
+        p1_uu = K.shape_launches.get("saddle_uu[4,0]", 0)
+        print(f"[{tag}] P1 vector-block launches (saddle_uu[4,0]) {p1_uu}; peak device "
+              f"memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB", flush=True)
+        check((p1_uu > 0) == (branch != "dense coarse"),
+              f"{tag}: the P1 vector block launched {p1_uu} times")
+        del model, state
+        torch.cuda.empty_cache()
+
+
+def phase_channel(K, card_name):
+    """9d: the channel_spinup example's model, its VTU and streamfunction,
+    cfl_map, then the eigen tools on the same mesh in f64."""
+    import torch
+
+    import nupgcm_tpu_torch as npg
+    from nupgcm_tpu_torch.examples import channel_spinup
+    from nupgcm_tpu_torch.io.vtk import save_vtk
+    from nupgcm_tpu_torch.postprocess import Grid3, cfl_map, overturning_streamfunction
+    from nupgcm_tpu_torch.tools import eigen
+
+    mesh = npg.generators.channel3D(0.06)
+    model = channel_spinup.build_model(mesh, 50, device="cuda", dtype=torch.float32)
+    fe = model.fe
+    print(f"[9d] channel3D(0.06): {mesh.n_vertices} vertices, {mesh.n_cells} cells, "
+          f"{len(mesh.periodic_pairs)} periodic pairs, {fe.n_inv} inversion DoF; "
+          f"preconditioner {model.preconditioner_branch} ({card_name})", flush=True)
+    check(fe.n_inv == 21219, f"9d: {fe.n_inv} inversion DoF, not 21,219")
+    check_kernels(model, K, "9d kernels")
+    state, _ = run_checked(model, model.set_b(model.rest_state(), channel_spinup.b0), K, "9d",
+                           card_name, n_info=0, max_steps=50)
+    check(state.step == 50, "9d: the run stopped early")
+    t0 = time.perf_counter()
+    vtu = ROOT / "out" / "channel_final.vtu"
+    vtu.parent.mkdir(exist_ok=True)
+    save_vtk(model, state, str(vtu))
+    text = vtu.read_text()
+    check("nan" not in text and "inf" not in text, "9d: the VTU holds a non-finite value")
+    psi, v_int, b_bar, _ = overturning_streamfunction(model, state,
+                                                      Grid3.from_mesh(mesh, 32, 64, 32))
+    cfl = cfl_map(model, state)
+    inside = ~np.isnan(psi)
+    check(inside.any() and np.isfinite(psi[inside]).all() and np.isfinite(cfl).all(),
+          "9d: a non-finite streamfunction or CFL map")
+    print(f"[9d] save_vtk ({vtu.stat().st_size / 2**20:.1f} MiB), overturning psi in "
+          f"[{np.nanmin(psi):.3e}, {np.nanmax(psi):.3e}], cfl dt >= {cfl.min():.3e}: "
+          f"{time.perf_counter() - t0:.2f} s on the host", flush=True)
+    del model, state
+    torch.cuda.empty_cache()
+
+    model = channel_spinup.build_model(mesh, 50, device="cuda", dtype=torch.float64)
+    for name in ("evolution_spectrum", "preconditioned_inversion_spectrum"):
+        torch.cuda.synchronize()
+        K.reset_counts()
+        eigen.matvec_count = 0
+        t0 = time.perf_counter()
+        vals = getattr(eigen, name)(model, k=6)
+        torch.cuda.synchronize()
+        launches, plain = dict(K.launches), dict(K.plain_calls)
+        print(f"[9d] {name} (f64): {eigen.matvec_count} matvecs in "
+              f"{time.perf_counter() - t0:.2f} s; |lambda| {np.abs(vals).min():.4e} .. "
+              f"{np.abs(vals).max():.4e}; launches { {k: v for k, v in launches.items() if v} }"
+              f" ({card_name})", flush=True)
+        check(len(vals) == 6 and np.isfinite(vals).all(), f"9d: {name} is not finite")
+        check(launches["scalar"] > 0 and (name == "evolution_spectrum"
+                                          or launches["saddle_full"] > 0),
+              f"9d: {name} ran no kernel")
+        check(all(v == 0 for v in plain.values()), f"9d: a plain version ran in {name}")
 
 
 def emit_tail(kernels, name_limit, kind, count):
@@ -587,7 +831,6 @@ def main():
     import nupgcm_tpu_torch as npg
     from nupgcm_tpu_torch.ops import build
     from nupgcm_tpu_torch.ops import kernels as K
-    from nupgcm_tpu_torch.tools import kernel_bench
     from nupgcm_tpu_torch.tools._common import card_name_limit, initial_b, mixing_setup
     from nupgcm_tpu_torch.tools.northstar import rel_l2
 
@@ -706,9 +949,7 @@ def main():
     check(st.step == n_steps and abs(float(st.t) - float(ref["t"])) < 1e-5,
           "golden run stopped at another time")
     check(eb < 1e-3 and eu < 1e-3, "golden run disagrees with the golden file")
-    for case in kernel_bench.kernel_cases(golden):  # 3c on P2-P1 triangles
-        check_case(golden, K, case, case["entry"] + ("" if case["mode"] is None
-                                                     else f"[{case['mode']}]"), "edges 2D")
+    check_kernels(golden, K, "edges 2D")  # 3c on P2-P1 triangles
     phase_edges(golden, K, "edges 2D")
     del golden, st
     torch.cuda.empty_cache()
@@ -717,6 +958,12 @@ def main():
     phase_northstar_full(K, name_limit)
     torch.cuda.empty_cache()
     phase_production(K, name_limit)
+    torch.cuda.empty_cache()
+
+    # 9. the rest of the single-device package
+    phase_sphere(K, name_limit)
+    phase_twogrid(K, name_limit)
+    phase_channel(K, name_limit)
 
     check("jax" not in sys.modules, "JAX was imported")
     kernels = [

@@ -15,6 +15,8 @@ Same public entry points as ``nupgcm_tpu``; ``PGModel`` takes
 
 from .mesh import generators
 from .mesh.core import Mesh
+from .mesh.gmsh_reader import read_msh
+from .mesh.writer import write_msh
 from .models.config import (
     ConvectionParameterization,
     EddyParameterization,
@@ -27,11 +29,13 @@ from .models.fedata import FEData, Spaces
 from .models.model import BlowUpError, PGModel, State
 from .models.timesteppers import BDF1, BDF2
 from .utils.timing import memory_status, print_memory_status
+from . import plotting, postprocess
 
 __version__ = "0.1.0"
 __all__ = [
     "Parameters", "Forcings", "SurfaceDirichletBC", "SurfaceFluxBC",
     "ConvectionParameterization", "EddyParameterization",
     "Spaces", "FEData", "PGModel", "State", "BlowUpError",
-    "BDF1", "BDF2", "Mesh", "generators", "memory_status", "print_memory_status",
+    "BDF1", "BDF2", "Mesh", "read_msh", "write_msh", "generators",
+    "plotting", "postprocess", "memory_status", "print_memory_status",
 ]

@@ -3,9 +3,10 @@
 Self-contained replacements for the reference's offline Gmsh scripts
 (reference meshes/mesh_bowl2D.jl, mesh_bowl3D.jl): bowl-shaped basins
 with the same physical groups ("bottom", "coastline", "surface",
-"interior"), the x-periodic channel + basin family of the production
-runs (reference meshes/channel_basin*.jl), plus a structured rectangle
-for unit tests.  All generators emit
+"interior"), the sphere, the 2D and 3D channels, the x-periodic
+channel + basin family of the production runs (reference
+meshes/channel_basin*.jl), plus simple rectangles/boxes for
+manufactured-solution tests.  All generators emit
 :class:`nupgcm_tpu_torch.mesh.core.Mesh` and produce the same
 vertices, cells, tags and periodic pairs as
 ``nupgcm_tpu.mesh.generators``.
@@ -21,7 +22,7 @@ from .core import Mesh
 
 
 # ----------------------------------------------------------------------
-# structured rectangle (for unit tests)
+# structured rectangle / box (for MMS + unit tests)
 # ----------------------------------------------------------------------
 
 def rect_mesh(nx: int, nz: int, x0=0.0, x1=1.0, z0=0.0, z1=1.0) -> Mesh:
@@ -65,259 +66,73 @@ def rect_mesh(nx: int, nz: int, x0=0.0, x1=1.0, z0=0.0, z1=1.0) -> Mesh:
     return Mesh(tdim=2, coords=coords, cells=cells, tagged=tagged)
 
 
-# ----------------------------------------------------------------------
-# 2D bowl (x-z plane), quasi-uniform column strips
-# ----------------------------------------------------------------------
+def box_mesh(nx: int, ny: int, nz: int, lo=(0.0, 0.0, 0.0), hi=(1.0, 1.0, 1.0)) -> Mesh:
+    """Structured tet mesh of a box (6 tets per hex, Kuhn split).
 
-def bowl2D(h: float, alpha: float = 0.5, depth=None) -> Mesh:
-    """Bowl basin {(x, z): -H(x) <= z <= 0, |x| <= 1}, H = alpha(1-x^2).
-
-    Quasi-uniform resolution ``h``; physical groups match the reference
-    bowl meshes: "bottom" (curve), "surface" (curve z=0), "coastline"
-    (the two end points), "interior".
+    Tags: "left"/"right" (x), "front"/"back" (y), "bottom"/"top" (z),
+    "boundary", "surface" (= top), "interior".
     """
-    H = depth if depth is not None else (lambda x: alpha * (1.0 - x ** 2))
-    nx = max(4, int(round(2.0 / h)))
-    xs = np.linspace(-1.0, 1.0, nx + 1)
+    xs = np.linspace(lo[0], hi[0], nx + 1)
+    ys = np.linspace(lo[1], hi[1], ny + 1)
+    zs = np.linspace(lo[2], hi[2], nz + 1)
+    X, Y, Z = np.meshgrid(xs, ys, zs, indexing="ij")
+    coords = np.stack([X.ravel(), Y.ravel(), Z.ravel()], axis=1)
+    vid = np.arange(coords.shape[0]).reshape(nx + 1, ny + 1, nz + 1)
 
-    columns = []  # list of arrays of node ids, bottom -> top
-    coords = []
-
-    def add_node(x, z):
-        coords.append((x, 0.0, z))
-        return len(coords) - 1
-
-    for x in xs:
-        Hx = max(H(x), 0.0)
-        nzi = max(1, int(round(Hx / h)))
-        if Hx <= 1e-14:
-            columns.append(np.array([add_node(x, 0.0)]))
-        else:
-            zs = np.linspace(-Hx, 0.0, nzi + 1)
-            columns.append(np.array([add_node(x, z) for z in zs]))
-
-    coords = np.array(coords)
+    # Kuhn triangulation: 6 tets per cube, conforming across faces
+    perms = [
+        (0, 1, 2), (0, 2, 1), (1, 0, 2), (1, 2, 0), (2, 0, 1), (2, 1, 0),
+    ]
     cells = []
-    for ci in range(nx):
-        A, B = columns[ci], columns[ci + 1]
-        a = b = 0
-        # two-pointer strip triangulation, advancing the chain whose
-        # next node gives the shorter diagonal
-        while a < len(A) - 1 or b < len(B) - 1:
-            can_a, can_b = a < len(A) - 1, b < len(B) - 1
-            if can_a and can_b:
-                da = np.linalg.norm(coords[A[a + 1]] - coords[B[b]])
-                db = np.linalg.norm(coords[B[b + 1]] - coords[A[a]])
-                use_a = da <= db
-            else:
-                use_a = can_a
-            if use_a:
-                cells.append((A[a], B[b], A[a + 1]))
-                a += 1
-            else:
-                cells.append((A[a], B[b], B[b + 1]))
-                b += 1
+    for i in range(nx):
+        for j in range(ny):
+            for k in range(nz):
+                base = np.array([i, j, k])
+                for p in perms:
+                    path = [base.copy()]
+                    cur = base.copy()
+                    for axis in p:
+                        cur = cur.copy()
+                        cur[axis] += 1
+                        path.append(cur)
+                    cells.append([vid[tuple(q)] for q in path])
     cells = np.array(cells, dtype=np.int64)
 
-    tops = np.array([c[-1] for c in columns])
-    bots = np.array([c[0] for c in columns])
-    surface = np.stack([tops[:-1], tops[1:]], axis=1)
-    bottom = np.stack([bots[:-1], bots[1:]], axis=1)
-    coast = np.array([[columns[0][0]], [columns[-1][0]]])
-    tagged = {
-        "surface": {1: surface},
-        "bottom": {1: bottom},
-        "coastline": {0: coast},
-        "interior": {2: cells},
+    def face_tris(fixed_axis, fixed_idx):
+        axes = [a for a in range(3) if a != fixed_axis]
+        n0 = [nx, ny, nz][axes[0]]
+        n1 = [nx, ny, nz][axes[1]]
+        tris = []
+        for a in range(n0):
+            for b in range(n1):
+                idx = [0, 0, 0]
+                idx[fixed_axis] = fixed_idx
+
+                def v(da, db):
+                    q = list(idx)
+                    q[axes[0]] = a + da
+                    q[axes[1]] = b + db
+                    return vid[tuple(q)]
+
+                # split matching the Kuhn tets: diagonal from (0,0) to (1,1)
+                tris.append((v(0, 0), v(1, 0), v(1, 1)))
+                tris.append((v(0, 0), v(1, 1), v(0, 1)))
+        return np.array(tris, dtype=np.int64)
+
+    sides = {
+        "left": face_tris(0, 0),
+        "right": face_tris(0, nx),
+        "front": face_tris(1, 0),
+        "back": face_tris(1, ny),
+        "bottom": face_tris(2, 0),
+        "top": face_tris(2, nz),
     }
-    return Mesh(tdim=2, coords=coords, cells=cells, tagged=tagged)
+    tagged = {name: {2: tris} for name, tris in sides.items()}
+    tagged["surface"] = {2: sides["top"]}
+    tagged["boundary"] = {2: np.vstack(list(sides.values()))}
+    tagged["interior"] = {3: cells}
+    return Mesh(tdim=3, coords=coords, cells=cells, tagged=tagged)
 
-
-# ----------------------------------------------------------------------
-# 3D bowl: triangulated disk base x sigma layers, prisms -> tets
-# ----------------------------------------------------------------------
-
-def disk_mesh_2d(h: float) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Quasi-uniform triangulated unit disk.
-
-    Returns (xy (nv, 2), tris (nt, 3), boundary ring node ids in order).
-    """
-    nr = max(2, int(round(1.0 / h)))
-    rings = [np.zeros((1, 2))]
-    counts = [1]
-    for k in range(1, nr + 1):
-        r = k / nr
-        m = max(6, int(round(2.0 * np.pi * r / h)))
-        th = 2.0 * np.pi * np.arange(m) / m
-        rings.append(np.stack([r * np.cos(th), r * np.sin(th)], axis=1))
-        counts.append(m)
-    offs = np.cumsum([0] + counts)
-    xy = np.vstack(rings)
-    tris = []
-    for k in range(nr):
-        A = np.arange(offs[k], offs[k + 1])       # inner ring ids
-        B = np.arange(offs[k + 1], offs[k + 2])   # outer ring ids
-        if len(A) == 1:
-            c = A[0]
-            m = len(B)
-            for i in range(m):
-                tris.append((c, B[i], B[(i + 1) % m]))
-            continue
-        # merge two circular chains by angle (nodes were generated in
-        # increasing-angle order starting at 0)
-        angA = np.mod(np.arctan2(xy[A, 1], xy[A, 0]), 2.0 * np.pi)
-        angB = np.mod(np.arctan2(xy[B, 1], xy[B, 0]), 2.0 * np.pi)
-        a = b = 0
-        nA, nB = len(A), len(B)
-
-        def ang(arr, i):
-            return arr[i % len(arr)] + 2.0 * np.pi * (i // len(arr))
-
-        while a < nA or b < nB:
-            if a < nA and b < nB:
-                use_a = ang(angA, a + 1) <= ang(angB, b + 1)
-            else:
-                use_a = a < nA
-            if use_a:
-                tris.append((A[a % nA], B[b % nB], A[(a + 1) % nA]))
-                a += 1
-            else:
-                tris.append((A[a % nA], B[b % nB], B[(b + 1) % nB]))
-                b += 1
-    tris = np.array(tris, dtype=np.int64)
-    # enforce CCW orientation
-    v = xy[tris]
-    area2 = (v[:, 1, 0] - v[:, 0, 0]) * (v[:, 2, 1] - v[:, 0, 1]) - (
-        v[:, 1, 1] - v[:, 0, 1]
-    ) * (v[:, 2, 0] - v[:, 0, 0])
-    flip = area2 < 0
-    tris[flip] = tris[flip][:, [0, 2, 1]]
-    ring = np.arange(offs[nr], offs[nr + 1])
-    return xy, tris, ring
-
-
-def _split_prism(prism: list[int], key: np.ndarray | None = None
-                 ) -> list[tuple[int, int, int, int]]:
-    """Split a prism into <=3 tets with globally consistent diagonals.
-
-    ``prism`` = [v0, v1, v2, v3, v4, v5] with vi+3 vertically above vi.
-    Uses the smallest-index rule (Dompierre et al. 1999): every quad
-    face is split along the diagonal through its smallest vertex, so
-    shared faces between neighboring prisms pick the same diagonal.
-    Comparisons go through ``key`` when given (identity otherwise):
-    mapping periodic slave vertices to their masters' keys makes the
-    two seam planes of a re-entrant channel split IDENTICALLY under
-    the periodic translation -- an exactly conforming seam.
-    """
-    V = list(prism)
-    k = (lambda v: int(key[v])) if key is not None else (lambda v: v)
-    # rotate so the smallest-key vertex is V[0]
-    imin = int(np.argmin([k(v) for v in V]))
-    if imin >= 3:
-        # flip the prism upside down (reverse winding to keep pairing)
-        V = [V[3], V[5], V[4], V[0], V[2], V[1]]
-        imin = int(np.argmin([k(v) for v in V]))
-    for _ in range(imin):
-        V = [V[1], V[2], V[0], V[4], V[5], V[3]]
-    v0, v1, v2, v3, v4, v5 = V
-    if min(k(v1), k(v5)) < min(k(v2), k(v4)):
-        tets = [(v0, v1, v2, v5), (v0, v1, v5, v4), (v0, v4, v5, v3)]
-    else:
-        tets = [(v0, v1, v2, v4), (v0, v4, v2, v5), (v0, v4, v5, v3)]
-    # drop tets degenerated by merged (collapsed) vertices
-    return [t for t in tets if len(set(t)) == 4]
-
-
-def bowl3D(h: float, alpha: float = 0.5, nz: int | None = None, depth=None) -> Mesh:
-    """Bowl basin {(x,y,z): -H <= z <= 0, x^2+y^2 <= 1}, H = alpha(1-x^2-y^2).
-
-    Sigma-layer tet mesh over a quasi-uniform disk base; coastline
-    columns collapse to single nodes on the unit circle.  Physical
-    groups: "bottom", "surface", "coastline" (1D ring), "interior".
-    """
-    H = depth if depth is not None else (lambda x, y: alpha * (1.0 - x ** 2 - y ** 2))
-    xy, tris, ring = disk_mesh_2d(h)
-    nb = xy.shape[0]
-    if nz is None:
-        nz = max(2, int(round(alpha / h)))
-    Hb = np.maximum(np.array([H(x, y) for x, y in xy]), 0.0)
-    collapsed = Hb <= 1e-14
-
-    # node ids: column of nz+1 levels per base vertex; collapsed -> 1
-    node_id = np.full((nb, nz + 1), -1, dtype=np.int64)
-    coords = []
-    for i in range(nb):
-        if collapsed[i]:
-            coords.append((xy[i, 0], xy[i, 1], 0.0))
-            node_id[i, :] = len(coords) - 1
-        else:
-            zs = np.linspace(-Hb[i], 0.0, nz + 1)
-            for j, z in enumerate(zs):
-                coords.append((xy[i, 0], xy[i, 1], z))
-                node_id[i, j] = len(coords) - 1
-    coords = np.array(coords)
-
-    tets = []
-    for (a, b, c) in tris:
-        for j in range(nz):
-            prism = [
-                node_id[a, j], node_id[b, j], node_id[c, j],
-                node_id[a, j + 1], node_id[b, j + 1], node_id[c, j + 1],
-            ]
-            if len(set(prism)) < 4:
-                continue
-            tets.extend(_split_prism(prism))
-    tets = np.array(tets, dtype=np.int64)
-    # drop numerically degenerate tets (can appear near the coastline)
-    X = coords[tets]
-    vol6 = np.einsum(
-        "ij,ij->i",
-        np.cross(X[:, 1] - X[:, 0], X[:, 2] - X[:, 0]),
-        X[:, 3] - X[:, 0],
-    )
-    tets = tets[np.abs(vol6) > 1e-12 * h ** 3]
-
-    surface = np.stack(
-        [node_id[tris[:, 0], nz], node_id[tris[:, 1], nz], node_id[tris[:, 2], nz]],
-        axis=1,
-    )
-    bottom = np.stack(
-        [node_id[tris[:, 0], 0], node_id[tris[:, 1], 0], node_id[tris[:, 2], 0]],
-        axis=1,
-    )
-    # bottom facets fully collapsed onto the surface are not real facets
-    keep = ~np.all(collapsed[tris], axis=1)
-    bottom = bottom[keep & (np.vectorize(len)(list(map(set, map(tuple, bottom)))) == 3)]
-    ring_nodes = node_id[ring, 0]
-    coast = np.stack([ring_nodes, np.roll(ring_nodes, -1)], axis=1)
-    tagged = {
-        "surface": {2: surface},
-        "bottom": {2: bottom},
-        "coastline": {1: coast},
-        "interior": {3: tets},
-    }
-    return Mesh(tdim=3, coords=coords, cells=tets, tagged=tagged)
-
-
-def boundary_facets(cells: np.ndarray) -> np.ndarray:
-    """Facets of a simplex mesh appearing in exactly one cell
-    (vectorized: sort-rows + run-length uniqueness)."""
-    from itertools import combinations
-
-    nvert = cells.shape[1]
-    idx = list(combinations(range(nvert), nvert - 1))
-    faces = np.sort(np.concatenate([cells[:, i] for i in idx], axis=0), axis=1)
-    order = np.lexsort(faces.T[::-1])
-    f = faces[order]
-    neq = np.any(f[1:] != f[:-1], axis=1)
-    once = np.concatenate([[True], neq]) & np.concatenate([neq, [True]])
-    return f[once].astype(np.int64)
-
-
-# ----------------------------------------------------------------------
-# channel + basin family: sigma columns over a level-set footprint,
-# x-periodic channel seam
-# ----------------------------------------------------------------------
 
 def _graded_sigma(nz: int, refinement_factor) -> np.ndarray:
     """Normalized vertical levels s in [0, 1] (s=0 bottom, s=1 surface).
@@ -678,3 +493,453 @@ def channel_basin_no_flat_round_end(h: float, alpha: float = 0.125,
 
     return _sigma_composite(h, phi2, depth, L, W, y_ch_top, H, nz,
                             refinement_factor)
+
+
+def sphere_mesh(n: int = 8, radius: float = 1.0) -> Mesh:
+    """Solid ball tet mesh via the cube-to-ball radial map
+    (reference meshes/mesh_sphere.jl: gmsh occ sphere with
+    "boundary"/"interior" groups).
+
+    ``n``: cells per cube half-axis (resolution ~ radius/n).
+    """
+    m = box_mesh(2 * n, 2 * n, 2 * n, lo=(-1, -1, -1), hi=(1, 1, 1))
+    p = m.coords.copy()
+    linf = np.abs(p).max(axis=1)
+    l2 = np.linalg.norm(p, axis=1)
+    scale = np.where(l2 > 0, linf / np.where(l2 > 0, l2, 1.0), 0.0)
+    coords = radius * p * scale[:, None]
+    bf = m.tagged["boundary"][2]
+    tagged = {
+        "boundary": {2: bf},
+        "surface": {2: bf},
+        "interior": {3: m.cells},
+    }
+    return Mesh(tdim=3, coords=coords, cells=m.cells.copy(), tagged=tagged)
+
+
+# ----------------------------------------------------------------------
+# 2D bowl (x-z plane), quasi-uniform column strips
+# ----------------------------------------------------------------------
+
+def bowl2D(h: float, alpha: float = 0.5, depth=None) -> Mesh:
+    """Bowl basin {(x, z): -H(x) <= z <= 0, |x| <= 1}, H = alpha(1-x^2).
+
+    Quasi-uniform resolution ``h``; physical groups match the reference
+    bowl meshes: "bottom" (curve), "surface" (curve z=0), "coastline"
+    (the two end points), "interior".
+    """
+    H = depth if depth is not None else (lambda x: alpha * (1.0 - x ** 2))
+    nx = max(4, int(round(2.0 / h)))
+    xs = np.linspace(-1.0, 1.0, nx + 1)
+
+    columns = []  # list of arrays of node ids, bottom -> top
+    coords = []
+
+    def add_node(x, z):
+        coords.append((x, 0.0, z))
+        return len(coords) - 1
+
+    for x in xs:
+        Hx = max(H(x), 0.0)
+        nzi = max(1, int(round(Hx / h)))
+        if Hx <= 1e-14:
+            columns.append(np.array([add_node(x, 0.0)]))
+        else:
+            zs = np.linspace(-Hx, 0.0, nzi + 1)
+            columns.append(np.array([add_node(x, z) for z in zs]))
+
+    coords = np.array(coords)
+    cells = []
+    for ci in range(nx):
+        A, B = columns[ci], columns[ci + 1]
+        a = b = 0
+        # two-pointer strip triangulation, advancing the chain whose
+        # next node gives the shorter diagonal
+        while a < len(A) - 1 or b < len(B) - 1:
+            can_a, can_b = a < len(A) - 1, b < len(B) - 1
+            if can_a and can_b:
+                da = np.linalg.norm(coords[A[a + 1]] - coords[B[b]])
+                db = np.linalg.norm(coords[B[b + 1]] - coords[A[a]])
+                use_a = da <= db
+            else:
+                use_a = can_a
+            if use_a:
+                cells.append((A[a], B[b], A[a + 1]))
+                a += 1
+            else:
+                cells.append((A[a], B[b], B[b + 1]))
+                b += 1
+    cells = np.array(cells, dtype=np.int64)
+
+    tops = np.array([c[-1] for c in columns])
+    bots = np.array([c[0] for c in columns])
+    surface = np.stack([tops[:-1], tops[1:]], axis=1)
+    bottom = np.stack([bots[:-1], bots[1:]], axis=1)
+    coast = np.array([[columns[0][0]], [columns[-1][0]]])
+    tagged = {
+        "surface": {1: surface},
+        "bottom": {1: bottom},
+        "coastline": {0: coast},
+        "interior": {2: cells},
+    }
+    return Mesh(tdim=2, coords=coords, cells=cells, tagged=tagged)
+
+
+def _strip_columns(ys, depth, h, add_node):
+    """Column-strip triangulation helper shared by the x-z/y-z slice
+    generators: quasi-uniform vertical chains per abscissa, two-pointer
+    strips between neighbors.  Returns (columns, cells)."""
+    columns = []
+    for y in ys:
+        Hy = max(depth(y), 0.0)
+        if Hy <= 1e-14:
+            columns.append(np.array([add_node(y, 0.0)]))
+        else:
+            nzi = max(1, int(round(Hy / h)))
+            zs = np.linspace(-Hy, 0.0, nzi + 1)
+            columns.append(np.array([add_node(y, z) for z in zs]))
+    return columns
+
+
+def channel2D(h: float, alpha: float = 0.5) -> Mesh:
+    """2D meridional (y-z) channel section with curved bottom and a
+    basin wall, matching the reference channel2D geometry
+    (reference meshes/mesh_channel2D.jl:4-42): y in [-1, -0.5], depth
+    H = alpha, bottom descends along a quadratic Bezier over
+    L_curve = 0.1875 then runs flat to the vertical "basin" wall at
+    y = -0.5.  Tags: "bottom", "surface", "basin", "coastline".
+    """
+    H = alpha
+    L_channel = 0.5
+    L_flat = L_channel / 4.0
+    L_curve = (L_channel - L_flat) / 2.0
+    y0, y1 = -1.0, -0.5
+
+    def depth(y):
+        if y <= y0 + L_curve:
+            t = (y - y0) / L_curve
+            return H * t * (2.0 - t)  # quadratic Bezier profile
+        return H
+
+    ny = max(4, int(round((y1 - y0) / h)))
+    ys = np.linspace(y0, y1, ny + 1)
+    coords = []
+
+    def add_node(y, z):
+        coords.append((0.0, y, z))
+        return len(coords) - 1
+
+    columns = _strip_columns(ys, depth, h, add_node)
+    cells = []
+    for ci in range(ny):
+        A, B = columns[ci], columns[ci + 1]
+        a = b = 0
+        cs = np.array(coords)
+        while a < len(A) - 1 or b < len(B) - 1:
+            can_a, can_b = a < len(A) - 1, b < len(B) - 1
+            if can_a and can_b:
+                da = np.linalg.norm(cs[A[a + 1]] - cs[B[b]])
+                db = np.linalg.norm(cs[B[b + 1]] - cs[A[a]])
+                use_a = da <= db
+            else:
+                use_a = can_a
+            if use_a:
+                cells.append((A[a], B[b], A[a + 1]))
+                a += 1
+            else:
+                cells.append((A[a], B[b], B[b + 1]))
+                b += 1
+    cells = np.array(cells, dtype=np.int64)
+    coords = np.array(coords)
+
+    tops = np.array([c[-1] for c in columns])
+    bots = np.array([c[0] for c in columns])
+    surface = np.stack([tops[:-1], tops[1:]], axis=1)
+    bottom = np.stack([bots[:-1], bots[1:]], axis=1)
+    wall = columns[-1]
+    basin = np.stack([wall[:-1], wall[1:]], axis=1)
+    coast = np.array([[columns[0][0]]])
+    tagged = {
+        "surface": {1: surface},
+        "bottom": {1: bottom},
+        "basin": {1: basin},
+        "coastline": {0: coast},
+        "interior": {2: cells},
+    }
+    return Mesh(tdim=2, coords=coords, cells=cells, tagged=tagged, plane=(1, 2))
+
+
+def boundary_facets(cells: np.ndarray) -> np.ndarray:
+    """Facets of a simplex mesh appearing in exactly one cell
+    (vectorized: sort-rows + run-length uniqueness)."""
+    from itertools import combinations
+
+    nvert = cells.shape[1]
+    idx = list(combinations(range(nvert), nvert - 1))
+    faces = np.sort(np.concatenate([cells[:, i] for i in idx], axis=0), axis=1)
+    order = np.lexsort(faces.T[::-1])
+    f = faces[order]
+    neq = np.any(f[1:] != f[:-1], axis=1)
+    once = np.concatenate([[True], neq]) & np.concatenate([neq, [True]])
+    return f[once].astype(np.int64)
+
+
+def channel3D(h: float, W: float = 0.5, D0: float = 0.5, Lx: float = 1.0,
+              nz: int | None = None) -> Mesh:
+    """Re-entrant (x-periodic) 3D channel: parabolic cross-section
+    depth D(y) = D0 (1 - (2y/W)^2), y in [-W/2, W/2], extruded along
+    x in [0, Lx] -- the reference's ``channel.msh`` geometry
+    (reference meshes/channel.jl:8-25, incl. the setPeriodic x-BC).
+
+    Tags: "bottom", "surface", "coastline", "interior";
+    ``mesh.periodic_pairs`` identifies the x = Lx plane with x = 0.
+    """
+    def depth(y):
+        s = 2.0 * y / W
+        return D0 * (1.0 - s * s)
+
+    # cross-section strip mesh in (y, z)
+    ny = max(4, int(round(W / h)))
+    ys = np.linspace(-W / 2, W / 2, ny + 1)
+    cs_coords = []
+
+    def add_cs(y, z):
+        cs_coords.append((y, z))
+        return len(cs_coords) - 1
+
+    columns = _strip_columns(ys, depth, h, add_cs)
+    cs_coords = np.array(cs_coords)
+    cs = np.array(cs_coords)
+    tris = []
+    for ci in range(ny):
+        A, B = columns[ci], columns[ci + 1]
+        a = b = 0
+        while a < len(A) - 1 or b < len(B) - 1:
+            can_a, can_b = a < len(A) - 1, b < len(B) - 1
+            if can_a and can_b:
+                da = np.linalg.norm(cs[A[a + 1]] - cs[B[b]])
+                db = np.linalg.norm(cs[B[b + 1]] - cs[A[a]])
+                use_a = da <= db
+            else:
+                use_a = can_a
+            if use_a:
+                tris.append((A[a], B[b], A[a + 1]))
+                a += 1
+            else:
+                tris.append((A[a], B[b], B[b + 1]))
+                b += 1
+    tris = np.array(tris, dtype=np.int64)
+    ncs = len(cs_coords)
+
+    # extrude along x
+    nx = max(2, int(round(Lx / h)))
+    node_id = np.arange((nx + 1) * ncs).reshape(nx + 1, ncs)
+    coords = np.zeros(((nx + 1) * ncs, 3))
+    for lev in range(nx + 1):
+        coords[node_id[lev], 0] = Lx * lev / nx
+        coords[node_id[lev], 1] = cs_coords[:, 0]
+        coords[node_id[lev], 2] = cs_coords[:, 1]
+
+    tets = []
+    for (a, b, c) in tris:
+        for lev in range(nx):
+            prism = [
+                node_id[lev, a], node_id[lev, b], node_id[lev, c],
+                node_id[lev + 1, a], node_id[lev + 1, b], node_id[lev + 1, c],
+            ]
+            tets.extend(_split_prism(prism))
+    tets = np.array(tets, dtype=np.int64)
+
+    # classify boundary facets by plane
+    bf = boundary_facets(tets)
+    z = coords[:, 2]
+    x = coords[:, 0]
+    on_sfc = np.all(np.abs(z[bf]) < 1e-12, axis=1)
+    on_end = np.all(np.abs(x[bf]) < 1e-12, axis=1) | np.all(
+        np.abs(x[bf] - Lx) < 1e-12, axis=1
+    )
+    surface = bf[on_sfc & ~on_end]
+    bottom = bf[~on_sfc & ~on_end]
+    # coastline: the two surface side lines y = +-W/2
+    coast_rows = [columns[0][0], columns[-1][0]]
+    coast = []
+    for r in coast_rows:
+        ids = node_id[:, r]
+        coast.append(np.stack([ids[:-1], ids[1:]], axis=1))
+    coast = np.vstack(coast)
+
+    pairs = np.stack([node_id[nx], node_id[0]], axis=1)
+    tagged = {
+        "surface": {2: surface},
+        "bottom": {2: bottom},
+        "coastline": {1: coast},
+        "interior": {3: tets},
+    }
+    return Mesh(tdim=3, coords=coords, cells=tets, tagged=tagged,
+                periodic_pairs=pairs)
+
+
+# ----------------------------------------------------------------------
+# 3D bowl: triangulated disk base x sigma layers, prisms -> tets
+# ----------------------------------------------------------------------
+
+def disk_mesh_2d(h: float) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Quasi-uniform triangulated unit disk.
+
+    Returns (xy (nv, 2), tris (nt, 3), boundary ring node ids in order).
+    """
+    nr = max(2, int(round(1.0 / h)))
+    rings = [np.zeros((1, 2))]
+    counts = [1]
+    for k in range(1, nr + 1):
+        r = k / nr
+        m = max(6, int(round(2.0 * np.pi * r / h)))
+        th = 2.0 * np.pi * np.arange(m) / m
+        rings.append(np.stack([r * np.cos(th), r * np.sin(th)], axis=1))
+        counts.append(m)
+    offs = np.cumsum([0] + counts)
+    xy = np.vstack(rings)
+    tris = []
+    for k in range(nr):
+        A = np.arange(offs[k], offs[k + 1])       # inner ring ids
+        B = np.arange(offs[k + 1], offs[k + 2])   # outer ring ids
+        if len(A) == 1:
+            c = A[0]
+            m = len(B)
+            for i in range(m):
+                tris.append((c, B[i], B[(i + 1) % m]))
+            continue
+        # merge two circular chains by angle (nodes were generated in
+        # increasing-angle order starting at 0)
+        angA = np.mod(np.arctan2(xy[A, 1], xy[A, 0]), 2.0 * np.pi)
+        angB = np.mod(np.arctan2(xy[B, 1], xy[B, 0]), 2.0 * np.pi)
+        a = b = 0
+        nA, nB = len(A), len(B)
+
+        def ang(arr, i):
+            return arr[i % len(arr)] + 2.0 * np.pi * (i // len(arr))
+
+        while a < nA or b < nB:
+            if a < nA and b < nB:
+                use_a = ang(angA, a + 1) <= ang(angB, b + 1)
+            else:
+                use_a = a < nA
+            if use_a:
+                tris.append((A[a % nA], B[b % nB], A[(a + 1) % nA]))
+                a += 1
+            else:
+                tris.append((A[a % nA], B[b % nB], B[(b + 1) % nB]))
+                b += 1
+    tris = np.array(tris, dtype=np.int64)
+    # enforce CCW orientation
+    v = xy[tris]
+    area2 = (v[:, 1, 0] - v[:, 0, 0]) * (v[:, 2, 1] - v[:, 0, 1]) - (
+        v[:, 1, 1] - v[:, 0, 1]
+    ) * (v[:, 2, 0] - v[:, 0, 0])
+    flip = area2 < 0
+    tris[flip] = tris[flip][:, [0, 2, 1]]
+    ring = np.arange(offs[nr], offs[nr + 1])
+    return xy, tris, ring
+
+
+def _split_prism(prism: list[int], key: np.ndarray | None = None
+                 ) -> list[tuple[int, int, int, int]]:
+    """Split a prism into <=3 tets with globally consistent diagonals.
+
+    ``prism`` = [v0, v1, v2, v3, v4, v5] with vi+3 vertically above vi.
+    Uses the smallest-index rule (Dompierre et al. 1999): every quad
+    face is split along the diagonal through its smallest vertex, so
+    shared faces between neighboring prisms pick the same diagonal.
+    Comparisons go through ``key`` when given (identity otherwise):
+    mapping periodic slave vertices to their masters' keys makes the
+    two seam planes of a re-entrant channel split IDENTICALLY under
+    the periodic translation -- an exactly conforming seam.
+    """
+    V = list(prism)
+    k = (lambda v: int(key[v])) if key is not None else (lambda v: v)
+    # rotate so the smallest-key vertex is V[0]
+    imin = int(np.argmin([k(v) for v in V]))
+    if imin >= 3:
+        # flip the prism upside down (reverse winding to keep pairing)
+        V = [V[3], V[5], V[4], V[0], V[2], V[1]]
+        imin = int(np.argmin([k(v) for v in V]))
+    for _ in range(imin):
+        V = [V[1], V[2], V[0], V[4], V[5], V[3]]
+    v0, v1, v2, v3, v4, v5 = V
+    if min(k(v1), k(v5)) < min(k(v2), k(v4)):
+        tets = [(v0, v1, v2, v5), (v0, v1, v5, v4), (v0, v4, v5, v3)]
+    else:
+        tets = [(v0, v1, v2, v4), (v0, v4, v2, v5), (v0, v4, v5, v3)]
+    # drop tets degenerated by merged (collapsed) vertices
+    return [t for t in tets if len(set(t)) == 4]
+
+
+def bowl3D(h: float, alpha: float = 0.5, nz: int | None = None, depth=None) -> Mesh:
+    """Bowl basin {(x,y,z): -H <= z <= 0, x^2+y^2 <= 1}, H = alpha(1-x^2-y^2).
+
+    Sigma-layer tet mesh over a quasi-uniform disk base; coastline
+    columns collapse to single nodes on the unit circle.  Physical
+    groups: "bottom", "surface", "coastline" (1D ring), "interior".
+    """
+    H = depth if depth is not None else (lambda x, y: alpha * (1.0 - x ** 2 - y ** 2))
+    xy, tris, ring = disk_mesh_2d(h)
+    nb = xy.shape[0]
+    if nz is None:
+        nz = max(2, int(round(alpha / h)))
+    Hb = np.maximum(np.array([H(x, y) for x, y in xy]), 0.0)
+    collapsed = Hb <= 1e-14
+
+    # node ids: column of nz+1 levels per base vertex; collapsed -> 1
+    node_id = np.full((nb, nz + 1), -1, dtype=np.int64)
+    coords = []
+    for i in range(nb):
+        if collapsed[i]:
+            coords.append((xy[i, 0], xy[i, 1], 0.0))
+            node_id[i, :] = len(coords) - 1
+        else:
+            zs = np.linspace(-Hb[i], 0.0, nz + 1)
+            for j, z in enumerate(zs):
+                coords.append((xy[i, 0], xy[i, 1], z))
+                node_id[i, j] = len(coords) - 1
+    coords = np.array(coords)
+
+    tets = []
+    for (a, b, c) in tris:
+        for j in range(nz):
+            prism = [
+                node_id[a, j], node_id[b, j], node_id[c, j],
+                node_id[a, j + 1], node_id[b, j + 1], node_id[c, j + 1],
+            ]
+            if len(set(prism)) < 4:
+                continue
+            tets.extend(_split_prism(prism))
+    tets = np.array(tets, dtype=np.int64)
+    # drop numerically degenerate tets (can appear near the coastline)
+    X = coords[tets]
+    vol6 = np.einsum(
+        "ij,ij->i",
+        np.cross(X[:, 1] - X[:, 0], X[:, 2] - X[:, 0]),
+        X[:, 3] - X[:, 0],
+    )
+    tets = tets[np.abs(vol6) > 1e-12 * h ** 3]
+
+    surface = np.stack(
+        [node_id[tris[:, 0], nz], node_id[tris[:, 1], nz], node_id[tris[:, 2], nz]],
+        axis=1,
+    )
+    bottom = np.stack(
+        [node_id[tris[:, 0], 0], node_id[tris[:, 1], 0], node_id[tris[:, 2], 0]],
+        axis=1,
+    )
+    # bottom facets fully collapsed onto the surface are not real facets
+    keep = ~np.all(collapsed[tris], axis=1)
+    bottom = bottom[keep & (np.vectorize(len)(list(map(set, map(tuple, bottom)))) == 3)]
+    ring_nodes = node_id[ring, 0]
+    coast = np.stack([ring_nodes, np.roll(ring_nodes, -1)], axis=1)
+    tagged = {
+        "surface": {2: surface},
+        "bottom": {2: bottom},
+        "coastline": {1: coast},
+        "interior": {3: tets},
+    }
+    return Mesh(tdim=3, coords=coords, cells=tets, tagged=tagged)

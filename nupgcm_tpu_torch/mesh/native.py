@@ -2,19 +2,32 @@
 
 Fast host-side unique-edge extraction and RCM, with NumPy/SciPy
 fallbacks when the shared library is missing.  The library is built on
-first use if a compiler is available (`make -C native`).
+first use if a compiler is available (``native/Makefile``).
 
 This loads the same ``native/libmeshkit.so`` as ``nupgcm_tpu`` and
 makes the same native-or-SciPy choice: native RCM and SciPy RCM give
 different dof orderings, so both packages must take the same branch
 for their dof layouts to agree.
+
+Processes that start together (parallel test workers, a batch of
+runs) must not build the library over each other: a reader that finds
+a half-written ``libmeshkit.so`` fails to load it and falls back to
+SciPy for the rest of its life, while its neighbours load the finished
+file.  So the build runs under an exclusive lock on ``native/``, into
+a temporary directory, and the finished library is moved into place in
+one rename; a library that exists but does not load is rebuilt (if
+that build fails too, loading it raises instead of falling back).
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
+import shutil
 import subprocess
+import tempfile
+import warnings
 
 import numpy as np
 
@@ -26,21 +39,52 @@ def _repo_root() -> str:
     return os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
+def _loads(path: str) -> bool:
+    try:
+        ctypes.CDLL(path)
+    except OSError:
+        return False
+    return True
+
+
+def _build(native: str, path: str) -> None:
+    """Build with native/Makefile's own rule into a temporary directory
+    beside it, then move the library into place atomically.  ``-B``:
+    make's VPATH search also finds the target, and would otherwise take
+    a broken ``native/libmeshkit.so`` newer than its source as built.
+    A failed build warns with the compiler's output."""
+    tmp = tempfile.mkdtemp(prefix=".build-", dir=native)
+    try:
+        subprocess.run(
+            ["make", "-B", "-C", tmp, "-f", os.path.join(native, "Makefile"),
+             f"VPATH={native}", "libmeshkit.so"],
+            check=True, capture_output=True, text=True, timeout=120,
+        )
+        os.replace(os.path.join(tmp, "libmeshkit.so"), path)
+    except subprocess.CalledProcessError as e:
+        warnings.warn(f"building native/libmeshkit.so failed:\n{e.stdout}{e.stderr}")
+    except (OSError, subprocess.SubprocessError) as e:
+        warnings.warn(f"building native/libmeshkit.so failed: {e}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def load(build: bool = True):
     """Load (and if needed build) libmeshkit.so; None if unavailable."""
     global _LIB, _TRIED
     if _LIB is not None or _TRIED:
         return _LIB
     _TRIED = True
-    path = os.path.join(_repo_root(), "native", "libmeshkit.so")
-    if not os.path.exists(path) and build:
+    native = os.path.join(_repo_root(), "native")
+    path = os.path.join(native, "libmeshkit.so")
+    if build and os.access(native, os.W_OK):
+        fd = os.open(native, os.O_RDONLY)
         try:
-            subprocess.run(
-                ["make", "-C", os.path.join(_repo_root(), "native")],
-                check=True, capture_output=True, timeout=120,
-            )
-        except (OSError, subprocess.SubprocessError):
-            return None
+            fcntl.flock(fd, fcntl.LOCK_EX)
+            if not (os.path.exists(path) and _loads(path)):
+                _build(native, path)
+        finally:
+            os.close(fd)  # releases the lock
     if not os.path.exists(path):
         return None
     lib = ctypes.CDLL(path)

@@ -24,7 +24,12 @@ rebuilds the inversion blocks from the current b every 10 steps
 (reference src/model.jl:160-170) and ``refresh_precond`` rebuilds the
 preconditioner on the caller's cadence.
 
-Not ported yet: the u-block two-grid (``saddle_coarse=False``).
+Preconditioner branches: the P1-P1 saddle-coarse level (the default;
+dense inverse on small meshes, element-local with an aggregate second
+level on large ones) or, with ``saddle_coarse=False, twogrid=True``,
+the u-block two-grid (a P1-vertex coarse level of the velocity block:
+dense inverse on small meshes, inner CG on the element-local P1
+operator on large ones).
 """
 
 from __future__ import annotations
@@ -45,7 +50,7 @@ from ..ops.sparse import MaskedOperator
 from ..solvers.cg import cg
 from ..solvers.gmres import gmres
 from ..solvers.preconditioners import (AggregateCoarseCorrection,
-                                       BlockStokesPrecond,
+                                       BlockStokesPrecond, CoarseCorrection,
                                        SaddleCoarseCorrection, power_lmax)
 from .config import Forcings, Parameters, SurfaceFluxBC
 from .fedata import FEData
@@ -220,6 +225,10 @@ class PGModel:
         self.triangular = triangular
         self.twogrid = twogrid
         self.coarse_dense_max = coarse_dense_max
+        # u-block two-grid: below this size the coarse problem is solved
+        # by a dense inverse, above it by inner CG on the element-local
+        # P1 operator
+        self.coarse_dense = 3 * fe.mesh.n_vertices <= coarse_dense_max
         # geostrophic (full-saddle P1-P1) coarse correction, default on:
         # small meshes use a precomputed dense coarse inverse, large ones
         # the element-local coarse operator with an aggregate level
@@ -234,10 +243,6 @@ class PGModel:
         self.saddle_coarse_delta = 1.0
         if self.saddle_coarse:
             self.twogrid = False
-        if self.twogrid:
-            raise NotImplementedError(
-                "the u-block two-grid (saddle_coarse=False, twogrid=True) "
-                "is not ported yet")
         if inner_method is None:
             # rotation-dominance at grid scale: Coriolis vs viscous
             # stiffness, f h^2 / (a2e2 nu).  Beyond ~10 the SPD
@@ -261,10 +266,12 @@ class PGModel:
                 saddle_coarse_inner = 40 if self.inner_method == "inner_gmres" else 16
         self.saddle_coarse_inner = saddle_coarse_inner
         if inner_iters_u is None:
+            # 2 (saddle V-cycle) / 4 (u-block two-grid) pre+post
+            # Chebyshev steps next to a coarse solve
             if self.inner_method == "inner_gmres":
                 inner_iters_u = 6
             else:
-                inner_iters_u = 2 if self.saddle_coarse else 10
+                inner_iters_u = 2 if self.saddle_coarse else 4 if self.twogrid else 10
         self.inner_iters = (inner_iters_u, inner_iters_p)
         self.assembly_chunk = assembly_chunk
 
@@ -276,6 +283,9 @@ class PGModel:
         """Which coarse path the inversion preconditioner takes."""
         if self.precond_kind == "diag":
             return "diagonal"
+        if self.twogrid:
+            return ("u-block two-grid, dense coarse" if self.coarse_dense
+                    else "u-block two-grid, element coarse + CG")
         if not self.saddle_coarse:
             return "block Stokes, no coarse level"
         if self.saddle_coarse_dense:
@@ -316,9 +326,12 @@ class PGModel:
         item = torch.empty((), dtype=self.dtype).element_size()
         c["blk_fine"] = blocks.operator_tables(fe.cd_u, fe.cd_p, ("full", "up", "uu"), item,
                                                self.device)
-        c["blk_coarse"] = (blocks.operator_tables(fe.cd_p, fe.cd_p, ("full_pp", "up", "uu"),
-                                                  item, self.device)
-                           if self.saddle_coarse else None)
+        # the P1 coarse operators: the saddle-coarse level's, or the
+        # two-grid's vector-P1 velocity block (element branch)
+        coarse_modes = (("full_pp", "up", "uu") if self.saddle_coarse
+                        else ("uu",) if self.twogrid and not self.coarse_dense else None)
+        c["blk_coarse"] = (blocks.operator_tables(fe.cd_p, fe.cd_p, coarse_modes, item,
+                                                  self.device) if coarse_modes else None)
         c["blk_b"] = blocks.scalar_table(fe.cd_b, item, self.device)
         c["blk_p"] = blocks.scalar_table(fe.cd_p, item, self.device)
         c["h_cells"] = T(fe.h_cells)
@@ -443,6 +456,51 @@ class PGModel:
             return self._visc_elems(wq, nu_q, f_q, Gu3, c["phi_u"])
 
         return self._chunked_cells(build_, c["wq"], nu_q, c["f_q"], c["invJT"], out=out)
+
+    def _assemble_coarse(self, ops, nu_q=None):
+        """Two-grid u-block coarse level: the P1-vertex (Galerkin)
+        coarse viscous operator.  Because P1 c P2 is a nested inclusion,
+        rediscretizing the same bilinear form with P1 elements IS the
+        Galerkin coarse operator P^T A P.
+
+        Small meshes (3 n_vert <= coarse_dense_max): the masked operator
+        assembled dense and inverted on the device by a float64 Cholesky
+        factorisation, cast to the model's dtype (``coarse_inv``).  Large
+        meshes: element tensors (``coarse_e``) for an inner-CG coarse
+        solve, with their Jacobi diagonal (``coarse_dinv``).
+
+        ``nu_q`` (volume quadrature points; default the build-time
+        ``c["nu_q"]``) lets ``refresh_precond`` rebuild the coarse level
+        from the current eddy viscosity."""
+        c = self.const
+        nu_q = c["nu_q"] if nu_q is None else nu_q
+
+        def build_(wq, nu_q, f_q, invJT):
+            Gp3 = asm.physical_grads(invJT, c["dphi_p"], c["embed"])
+            return self._visc_elems(wq, nu_q, f_q, Gp3, c["phi_p"])
+
+        if not self.coarse_dense:
+            out = ops.get("coarse_e")
+            ops["coarse_e"] = self._chunked_cells(build_, c["wq"], nu_q, c["f_q"],
+                                                  c["invJT"], out=out)
+            cop = MaskedOperator(self._coarse_operator(ops["coarse_e"]), c["tg_coarse_free"])
+            ops["coarse_dinv"] = 1.0 / cop.diagonal()
+            return
+
+        elem = self._chunked_cells(build_, c["wq"], nu_q, c["f_q"], c["invJT"])
+        nlp = c["phi_p"].shape[1]
+        Nc = 3 * self.fe.spaces.p_space.ndof
+        cd_p = c["cd_p"].long()
+        idx = (3 * cd_p[:, :, None] + torch.arange(3, device=self.device)).reshape(-1, 3 * nlp)
+        rows = idx[:, :, None].expand(-1, -1, 3 * nlp)
+        cols = idx[:, None, :].expand(-1, 3 * nlp, -1)
+        lin = (rows * Nc + cols).reshape(-1)
+        A = torch.zeros(Nc * Nc, dtype=torch.float64, device=self.device)
+        A.index_add_(0, lin, elem.reshape(-1).to(torch.float64))
+        A = A.reshape(Nc, Nc)
+        free = c["tg_coarse_free"].to(torch.float64)
+        A = free[:, None] * A * free[None, :] + torch.diag(1.0 - free)
+        ops["coarse_inv"] = torch.cholesky_inverse(torch.linalg.cholesky(A)).to(self.dtype)
 
     def _assemble_saddle_coarse(self, ops, nu_q=None):
         """P1-P1 COARSE SADDLE system (velocity AND pressure) -- the
@@ -766,6 +824,8 @@ class PGModel:
         ops["lmax_u"] = power_lmax(visc_op, ops["visc_dinv"], sp.n_u)
         ops["lmax_p"] = power_lmax(mp_op, ops["mp_dinv"], sp.n_p)
 
+        if self.twogrid:
+            self._assemble_coarse(ops)
         if self.saddle_coarse:
             self._assemble_saddle_coarse(ops)
         if "sc_visc_e" in ops:
@@ -833,6 +893,29 @@ class PGModel:
         if self.triangular:
             free_u = c["free_u"]
             up_coupling = lambda zp: free_u * Amat.up_matvec(zp)
+        coarse = None
+        if "coarse_inv" in ops or "coarse_e" in ops:
+            if "coarse_inv" in ops:
+                cinv = ops["coarse_inv"]
+                solve = lambda rc: cinv @ rc
+            else:
+                cop = MaskedOperator(self._coarse_operator(ops["coarse_e"]),
+                                     c["tg_coarse_free"])
+                cdiag_inv = ops["coarse_dinv"]
+
+                def solve(rc):
+                    zc, _ = cg(cop, rc, torch.zeros_like(rc), M_diag_inv=cdiag_inv,
+                               atol=0.0, rtol=1e-2, itmax=60)
+                    return zc
+
+            coarse = CoarseCorrection(
+                solve=solve,
+                parents=c["tg_parents"],
+                weights=c["tg_weights"],
+                coarse_free=c["tg_coarse_free"],
+                free_u=c["free_u"],
+                n_vert=self.fe.spaces.p_space.ndof,
+            )
         saddle_coarse = None
         outer_op = None
         if "saddle_coarse_inv" in ops or "sc_uu" in ops:
@@ -865,6 +948,7 @@ class PGModel:
             cond_ratio=self.cond_ratio,
             ublock_op=ublock_op,
             up_coupling=up_coupling,
+            coarse=coarse,
             saddle_coarse=saddle_coarse,
             outer_op=outer_op,
         )
@@ -994,9 +1078,13 @@ class PGModel:
         This recomputes every nu-dependent preconditioner operator from
         ``state.b``: the inversion blocks (the values the next eddy
         rebuild would produce), the smoother block with its diagonal and
-        spectral bound, the saddle-coarse tensors with their diagonal,
-        pin, bound and aggregate-level inverse (or the dense coarse
-        inverse).  Every shape is kept.
+        spectral bound, the two-grid coarse level (its element tensors
+        and diagonal, or its dense inverse), the saddle-coarse tensors
+        with their diagonal, pin, bound and aggregate-level inverse (or
+        the dense coarse inverse).  Every shape is kept.  (The JAX
+        package's two-grid refresh reads ``coarse_e`` on the dense
+        branch too, which never sets it, and raises ``KeyError``; here
+        the dense branch rebuilds ``coarse_inv``.)
 
         Memory: the element tensors (``A_*_e``, ``visc_e``, ``sc_*``)
         are rebuilt chunk by chunk INTO the tensors ``ops`` holds, so
@@ -1013,6 +1101,8 @@ class PGModel:
         visc_op = MaskedOperator(self._visc_operator(ops["visc_e"]), c["free_u"])
         ops["visc_dinv"] = 1.0 / visc_op.diagonal()
         ops["lmax_u"] = power_lmax(visc_op, ops["visc_dinv"], sp.n_u)
+        if self.twogrid:
+            self._assemble_coarse(ops, nu_q)
         if self.saddle_coarse:
             self._assemble_saddle_coarse(ops, nu_q)
             if "sc_visc_e" in ops:

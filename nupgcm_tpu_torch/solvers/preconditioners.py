@@ -2,8 +2,9 @@
 
 Counterpart of ``nupgcm_tpu.solvers.preconditioners``: the block Stokes
 preconditioner with fixed-iteration Chebyshev smoothing of the velocity
-block and the pressure mass matrix, the P1-P1 saddle-coarse correction
-and its second (aggregate) level, all wrapped in FGMRES by the model.
+block and the pressure mass matrix, the P1-vertex two-grid correction of
+the velocity block, the P1-P1 saddle-coarse correction and its second
+(aggregate) level, all wrapped in FGMRES by the model.
 The reference's own strategy (src/inversion.jl:42-59,
 src/preconditioners.jl) needs tens of thousands of
 1/h^dim-preconditioned iterations (BASELINE.md); this needs O(10).
@@ -53,6 +54,47 @@ def power_lmax(op, dinv: torch.Tensor, n: int, iters: int = 30) -> torch.Tensor:
         v = w / torch.linalg.vector_norm(w)
     w = dinv * op(v)
     return 1.1 * torch.dot(v, w) / torch.dot(v, v)
+
+
+def jacobi(diag: torch.Tensor):
+    """Pointwise inverse-diagonal preconditioner."""
+    inv = 1.0 / diag
+    return lambda r: inv * r
+
+
+def const_diag(scale: float):
+    """Constant diagonal scaling (reference 1/h^dim preconditioner)."""
+    return lambda r: r / scale
+
+
+@dataclass
+class CoarseCorrection:
+    """P1-vertex two-grid correction for the velocity block.
+
+    Given a smoothed iterate z for A z = r, restricts the residual to
+    the vertex coarse space (the transpose of the exact P1 c P2
+    inclusion, a scatter-add), solves it with ``solve`` -- a dense
+    coarse inverse (small meshes) or inner CG on the element-local P1
+    operator -- and prolongs the correction back.  Flattens the
+    h-dependence of the outer iteration count that pure Chebyshev
+    smoothing suffers.
+    """
+
+    solve: callable  # rc (3nv,) -> zc (3nv,)
+    parents: torch.Tensor  # (n_nodes, 2) int64 coarse vertex dofs
+    weights: torch.Tensor  # (n_nodes, 2) inclusion weights (1,0)/(.5,.5)
+    coarse_free: torch.Tensor  # (3nv,) mask
+    free_u: torch.Tensor  # (3*n_nodes,) fine mask
+    n_vert: int
+
+    def __call__(self, A, r: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+        rf = (r - A(z)).reshape(-1, 3)  # node-major (node, comp)
+        contrib = self.weights[:, :, None] * rf[:, None, :]  # (n, 2, 3)
+        rcoarse = r.new_zeros((self.n_vert, 3)).index_add_(
+            0, self.parents.reshape(-1), contrib.reshape(-1, 3)).reshape(-1)
+        zc = self.solve(rcoarse * self.coarse_free) * self.coarse_free
+        corr = (self.weights[:, :, None] * zc.reshape(-1, 3)[self.parents]).sum(dim=1)
+        return z + corr.reshape(-1) * self.free_u
 
 
 @dataclass
@@ -142,7 +184,8 @@ class BlockStokesPrecond:
     velocity block and S_hat = M_p / a2e2 the pressure Schur complement.
     Blocks are inverted approximately by fixed-iteration Chebyshev
     smoothing (``method='cg'``: Jacobi-CG; ``'inner_gmres'``: GMRES on
-    the full nonsymmetric velocity block), optionally followed by the
+    the full nonsymmetric velocity block), optionally with a two-grid
+    V-cycle on the velocity block (``coarse``) or followed by the
     multiplicative saddle-coarse correction.
     """
 
@@ -159,6 +202,7 @@ class BlockStokesPrecond:
     cond_ratio: float = 30.0  # lmin = lmax / cond_ratio
     ublock_op: callable = None  # FULL u-block (viscous + Coriolis)
     up_coupling: callable = None  # p -> u pressure-gradient block (-B^T)
+    coarse: object = None  # optional CoarseCorrection (velocity two-grid)
     saddle_coarse: object = None  # optional SaddleCoarseCorrection
     outer_op: callable = None  # full masked saddle operator (for
     #                            residuals of the saddle coarse step)
@@ -192,6 +236,10 @@ class BlockStokesPrecond:
             return torch.cat([self._solve_u(ru - self.up_coupling(zp)), zp])
         return torch.cat([self._solve_u(ru), self._solve_p(rp)])
 
+    def _chebyshev_u(self, ru: torch.Tensor) -> torch.Tensor:
+        return chebyshev(self.visc_op, self.visc_diag_inv, ru, self.inner_iters_u,
+                         self.lmax_u / self.cond_ratio, self.lmax_u)
+
     def _solve_u(self, ru: torch.Tensor) -> torch.Tensor:
         if self.method == "inner_gmres":
             # rotation-dominated regime: the skew Coriolis term dominates
@@ -200,12 +248,14 @@ class BlockStokesPrecond:
                           M=lambda v: self.visc_diag_inv * v,
                           m=self.inner_iters_u, atol=0.0, rtol=1e-8,
                           itmax=self.inner_iters_u)
-            return zu
-        if self.method == "chebyshev":
-            return chebyshev(self.visc_op, self.visc_diag_inv, ru,
-                             self.inner_iters_u, self.lmax_u / self.cond_ratio,
-                             self.lmax_u)
-        zu, _ = cg(self.visc_op, ru, torch.zeros_like(ru),
-                   M_diag_inv=self.visc_diag_inv,
-                   atol=0.0, rtol=1e-8, itmax=self.inner_iters_u)
+        elif self.method == "chebyshev":
+            zu = self._chebyshev_u(ru)
+        else:
+            zu, _ = cg(self.visc_op, ru, torch.zeros_like(ru),
+                       M_diag_inv=self.visc_diag_inv,
+                       atol=0.0, rtol=1e-8, itmax=self.inner_iters_u)
+        if self.coarse is not None:
+            # V-cycle: pre-smooth (above), coarse solve, post-smooth
+            zu = self.coarse(self.visc_op, ru, zu)
+            zu = zu + self._chebyshev_u(ru - self.visc_op(zu))
         return zu

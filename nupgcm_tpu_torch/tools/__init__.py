@@ -10,4 +10,9 @@
 Each has ``run(...)``, which returns its results and also runs on the
 CPU at small sizes (the kernels' plain versions), and ``main()``, which
 raises without CUDA.
+
+Beside them: ``production`` and ``northstar`` (the full-physics runs),
+``eigen`` (ARPACK spectra of the model's operators through SciPy
+``LinearOperator``s whose matvecs run on the model's device) and
+``column`` (the 1D sloped-column model, NumPy).
 """

@@ -114,6 +114,10 @@ def kernel_cases(model, Kv_e=None):
             saddle("uu", "P1 coarse viscous smoother", (o["sc_visc_e"], None, None, None),
                    c["cd_p"], c["cd_none"], "blk_coarse", nv, 0),
         ]
+    if "coarse_e" in o:  # the u-block two-grid's element coarse level
+        cases.append(saddle("uu", "P1 vector two-grid coarse block",
+                            (o["coarse_e"], None, None, None), c["cd_p"], c["cd_none"],
+                            "blk_coarse", nv, 0))
     cases += [
         scalar(f"P{sp.b_order} buoyancy evolution matrix", evo, c["cd_b"], "blk_b", sp.n_b),
         scalar("P1 pressure mass", o["Mp_e"], c["cd_p"], "blk_p", sp.n_p),

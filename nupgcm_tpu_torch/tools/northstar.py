@@ -10,9 +10,12 @@ recording throughput and a self-golden final state.  ``--physics full``
 adds wind, convection and eddy closures (adaptive-CFL BDF1), with
 ``refresh_precond`` after every block.
 
-The reference mesh and golden are not shipped with the repository, so
-the run takes the generated ``bowl3D(0.1, 0.5, nz=7)`` (the JAX tool's
-own fallback) and skips the golden prefix check.
+The reference mesh and golden are not shipped with the repository.
+The run reads the reference's ``meshes/bowl3D_1.000000e-01_5.000000e-01.msh``
+with ``read_msh`` when the ``NUPGCM_REF_MESH`` environment variable
+names that file and it is present; otherwise it takes the generated
+``bowl3D(0.1, 0.5, nz=7)`` (the JAX tool's own fallback).  It skips the
+golden prefix check.
 
 Usage::
 
@@ -35,10 +38,16 @@ import numpy as np
 import torch
 
 
-def reference_mesh():
-    """The generated stand-in for the reference's bowl3D h = 0.1 mesh."""
-    from nupgcm_tpu_torch import generators
+REF_MESH = os.environ.get("NUPGCM_REF_MESH")
 
+
+def reference_mesh():
+    """The reference's bowl3D h = 0.1 mesh (``REF_MESH``) when that file
+    is present, else its generated stand-in."""
+    from nupgcm_tpu_torch import generators, read_msh
+
+    if REF_MESH and os.path.exists(REF_MESH):
+        return read_msh(REF_MESH), "reference bowl3D h=0.1"
     return generators.bowl3D(0.1, 0.5, nz=7), "generated bowl3D h=0.1"
 
 

@@ -13,9 +13,16 @@ def test_port_imports_without_jax():
             "from nupgcm_tpu_torch.tools import (_common, northstar, production,\n"
             "                                    profile_matvec, profile_step,\n"
             "                                    profile_stream, sweep_inner)\n"
-            "from nupgcm_tpu_torch.io import checkpoint\n"
-            "from nupgcm_tpu_torch.mesh import generators, quality\n"
-            "from nupgcm_tpu_torch.utils import timing\n"
+            "from nupgcm_tpu_torch.io import checkpoint, vtk\n"
+            "from nupgcm_tpu_torch.mesh import generators, gmsh_reader, quality, writer\n"
+            "from nupgcm_tpu_torch.utils import misc, pointeval, timing\n"
+            "from nupgcm_tpu_torch import plotting, postprocess\n"
+            "from nupgcm_tpu_torch.tools import column, eigen\n"
+            "from nupgcm_tpu_torch.examples import (bowl_mixing, channel_spinup,\n"
+            "                                       convergence, sphere)\n"
+            "from nupgcm_tpu_torch.solvers.preconditioners import (CoarseCorrection,\n"
+            "                                                      const_diag, jacobi)\n"
+            "assert 'matplotlib' not in sys.modules\n"
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
             "assert 'nupgcm_tpu' not in sys.modules\n")
     root = pathlib.Path(__file__).resolve().parents[1]

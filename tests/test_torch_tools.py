@@ -29,6 +29,7 @@ from nupgcm_tpu_torch.tools import (_common, profile_matvec, profile_step, profi
                                     sweep_inner)
 from nupgcm_tpu_torch.utils import timing
 from test_torch_model import pair  # noqa: F401  (fixture)
+from torch_parity import assert_same_rcm_branch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FIELDS = ("u", "p", "b", "u_prev", "b_prev", "t", "dt", "step")
@@ -37,20 +38,33 @@ TOOLS = {"profile_matvec": profile_matvec, "profile_stream": profile_stream,
 
 
 def _same_start(mj, mt):
+    assert_same_rcm_branch()
     sj = mj.set_b(mj.rest_state(), _common.initial_b)
     st = state_from_numpy({k: np.asarray(getattr(sj, k)) for k in FIELDS}, "cpu")
     mt.ops = ops_from_numpy({k: np.asarray(v) for k, v in mj.ops.items()}, "cpu")
     return sj, st
 
 
-def _assert_same(sj, auxj, st, aux, n):
+def _assert_same(mj, sj, auxj, st, aux, n):
+    """Equal per-step iteration counts, then u, p, b within 1e-9
+    relative; a failure names the count or field, the step and the
+    size of the difference, beside each JAX solve's final residual and
+    its stopping tolerance (atol + rtol ||r0||)."""
+    res = "; ".join(
+        f"{k} residuals {np.asarray(auxj[k[:3] + '_res'])} (atol {opts['atol']}, "
+        f"rtol {opts['rtol']})"
+        for k, opts in (("evo_iters", mj.evo_opts), ("inv_iters", mj.inv_opts)))
     for k in ("evo_iters", "inv_iters"):
         assert aux[k].shape == (n,)
-        np.testing.assert_array_equal(aux[k], np.asarray(auxj[k]))
+        a, b = np.asarray(auxj[k]), aux[k]
+        bad = np.flatnonzero(a != b)
+        assert not bad.size, (f"{k} differ from step {bad[0] + 1}: JAX {a}, port {b}; "
+                              f"JAX {res}")
     assert aux["inv_iters"].min() > 0
     for f in ("u", "p", "b"):
         a, b = np.asarray(getattr(sj, f)), getattr(st, f).numpy()
-        assert np.abs(a - b).max() <= 1e-9 * np.abs(a).max(), f
+        rel = np.abs(a - b).max() / np.abs(a).max()
+        assert rel <= 1e-9, f"{f} after step {n}: max relative difference {rel:.3e}; JAX {res}"
     assert st.step == int(sj.step)
 
 
@@ -60,7 +74,7 @@ def test_multi_step_matches_jax(pair):  # noqa: F811
     _, sj, auxj = mj.multi_step_jit(mj.ops, sj, 3)
     st, aux = mt.multi_step(st, 3)
     assert sorted(aux) == sorted(AUX_KEYS) == sorted(auxj)
-    _assert_same(sj, auxj, st, aux, 3)
+    _assert_same(mj, sj, auxj, st, aux, 3)
 
 
 def test_retune_matches_jax(pair):  # noqa: F811
@@ -75,7 +89,7 @@ def test_retune_matches_jax(pair):  # noqa: F811
         assert mt.ops is ops
         _, sj, auxj = mj.multi_step_jit(mj.ops, sj, 2)
         st, aux = mt.multi_step(st, 2)
-        _assert_same(sj, auxj, st, aux, 2)
+        _assert_same(mj, sj, auxj, st, aux, 2)
     finally:
         mj.retune(saddle_coarse_inner=base)
         mt.retune(saddle_coarse_inner=base)
