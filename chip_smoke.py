@@ -107,24 +107,65 @@ Phases (any failed check raises, and the script exits non-zero):
      just after; the invert of 9a and 9c read on its own), no plain
      version ran.
 
+  10. domain decomposition (nupgcm_tpu_torch.parallel.dd) over a NCCL
+     process group of world size 1 holding 4 local shards (NCCL's
+     all_reduce on the path; NCCL allows one rank per card):
+     10a. bowl3D(0.16, 0.5, nz=5) in f64 at tests/test_parallel.py's
+          tight tolerances, from set_b + invert: one DDModel(model, 4)
+          step against the single-device step on the card, max|du| and
+          max|db| below 1e-12 of max|u| and max|b| (both printed, and
+          the step must move b), FGMRES and CG counts within 1; the
+          halo depth K of each space.
+     10b. the slice bowl3D(0.08, 0.5, nz=9) (103,862 DoF) in f32 with
+          the mixing configuration of phase 4 (iterative saddle coarse +
+          aggregate level), S = 4: every shard's K1/K2 cases on its own
+          extended tables against the plain versions at the phase-3
+          bars; then set_b + invert (single device) and 10 DD steps
+          with the counts set to 0 just before: every state finite,
+          every solve under its cap, every K1/K2 counter launched, no
+          plain call, FGMRES and CG counts within 1 of the
+          single-device run's from the same state in every step;
+          steps/s, the host share of the shifts and reductions, peak
+          memory, and the final state's FE relative L2 distance to the
+          single-device run (bar 1e-9; it reads ~1e-13).
+     10c. the multi-process entry point, tools/multihost_dryrun: its
+          run() over the one-rank NCCL group with 4 local shards
+          against run() with no process group (norms, max|u|, max|b|
+          within 1e-11 relative, FGMRES counts within 1); then, only on
+          a machine with 4 or more cards, 4 spawned processes of
+          ``python -m nupgcm_tpu_torch.tools.multihost_dryrun
+          --local-shards 1`` (4 NCCL ranks of one shard, one card
+          each): every rank's norms equal, and within 1e-11 relative of
+          the one-rank run.  A one-card machine prints that the
+          4-rank run was not made.
+
+One phase runs alone from a script that loads this file with importlib
+and calls its function (for example phase_dd after build.load()).
+
 Phases 3 and 8b time each kernel case beside one library call that
 computes the same function: cuSPARSE through torch.sparse.mm on the
 operator assembled to CSR here (never in the port).  Each kernel's
 bound is the larger of its bytes (each input read once, each output
 written once) over 3.35 TB/s and its multiply-adds over 67 TFLOP/s
-(H100 SXM f32 without tensor cores).  Phases 4 and 8 print the
-launches per mode and local size (kernels.shape_launches).
+(H100 SXM f32 without tensor cores); a device time below its bound
+fails the run (it can only be a trace that missed calls).  Phases 4
+and 8 print the launches per mode and local size
+(kernels.shape_launches).
 
 Phases run in the order 1, 2, 4a (build the slice), 3, 3c, 3b, 4b
-(step it), 6, 7, 5 (with the 2D edge cases), 8a, 8b, 9a-9d.  The last three
-lines are the card's name and power limit, a JSON object {"kernels": [...]}, and
-{"ok": true, "device": {...}}.
+(step it), 6, 7, 5 (with the 2D edge cases), 8a, 8b, 9a-9d, 10a-10c.  The last
+three lines are the card's name and power limit, a JSON object {"kernels": [...]}
+(K1/K2 entries also carry "dd_launches", their launches in 10b's DD steps),
+and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import datetime
 import json
 import pathlib
+import socket
+import subprocess
 import sys
 import time
 
@@ -149,6 +190,17 @@ INVERT_COUNTERS = STEP_COUNTERS[:4]
 # against the f64 golden; f32 reads about 1e-14 (u) and 1e-16 (b)
 SPHERE_BAR = 1e-9
 STREAM_SHAPES = ((3, 128, False), (1, 512, True))  # K4 cases of profile_stream
+DD_SHARDS = 4
+# 10a (f64), max|du|, max|db| relative to max|u|, max|b|: reads ~1e-15
+DD_PARITY_BAR = 1e-12
+# 10b (f32), FE rel-L2 (a squared-norm ratio) to the single-device run;
+# the solves stop at the same iterations, and it reads 3e-14-6e-14
+DD_DISTANCE_BAR = 1e-9
+# 10c (f64), norms relative to the one-rank run: reads ~2e-16 without a
+# process group (K1/K2's atomics alone)
+DD_DRYRUN_BAR = 1e-11
+DRYRUN_STEPS = 3
+DRYRUN_KEYS = ("u2", "p2", "b2", "u_max", "b_max")  # of multihost_dryrun.run
 
 
 def check(cond, msg):
@@ -174,12 +226,23 @@ def phase_kernels(model, K, card_name, tag="kernels", Kv_e=None):
                                                                    flush=True), tag=tag)
         check(rec["lib_rel_err"] <= BARS["float32"],
               f"{name} {case['label']}: the CSR yardstick disagrees with plain")
+        for key in ("device_ms", "library_device_ms"):
+            check_bound(rec[key], rec["bound_ms"], f"{name} {case['label']} {key}")
         top = results.setdefault(name, dict(rec, name=name, max_abs_err=0.0, cases=[],
                                             counter="scalar" if case["mode"] is None
                                             else f"saddle_{case['mode']}"))
         top["max_abs_err"] = max(top["max_abs_err"], err)
         top["cases"].append(rec)
     return results
+
+
+def check_bound(device_ms, bound_ms, what):
+    """No device time can fall below the bound: a reading that does is a
+    fault of the measurement (kernel_bench.device_ms keeps no trace that
+    missed calls, so none should reach here)."""
+    if device_ms is not None and device_ms < bound_ms:
+        raise RuntimeError(f"{what}: {device_ms:.4f} ms on the device, below the bound "
+                           f"{bound_ms:.4f} ms")
 
 
 def check_case(model, K, case, name, tag):
@@ -262,10 +325,12 @@ def probe_check(name, dtype, out, ref, scale, scale_name, card_name, kfn, pfn, w
         rec["device_ms"], rec["host_us"] = kb.device_ms(kfn), kb.host_us(kfn)
         rec["bound_ms"], rec["bound_by"] = kb.bound(*work)
         rec["library_ms"] = rec["library_device_ms"] = None
+        dev = "not measured" if rec["device_ms"] is None else f"{rec['device_ms']:.4f} ms"
         print(f"[probes] {name:22s} f32: {rec['ms']:.4f} ms kernel (device "
-              f"{rec['device_ms']:.4f} ms, host {rec['host_us']:.1f} us), "
+              f"{dev}, host {rec['host_us']:.1f} us), "
               f"{rec['plain_ms']:.4f} ms plain, bound {rec['bound_ms']:.4f} ms "
               f"({rec['bound_by']}) ({card_name})", flush=True)
+        check_bound(rec["device_ms"], rec["bound_ms"], f"{name} device_ms")
     return rec
 
 
@@ -814,6 +879,275 @@ def phase_channel(K, card_name):
         check(all(v == 0 for v in plain.values()), f"9d: a plain version ran in {name}")
 
 
+def free_port() -> int:
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def dd_cases(op, dtype):
+    """(label, kernel fn, plain fn) of a DD shard operator in ``dtype``:
+    its K1 mode (and "up" where it has a coupling block) or its K2
+    application, the kernel over block tables of its own extended (or
+    global coarse) dof tables."""
+    import torch
+
+    from nupgcm_tpu_torch.ops import kernels as K
+    from nupgcm_tpu_torch.ops.element import ElementOperator, SaddleOperator
+
+    conv = lambda t: None if t is None else t.to(dtype).contiguous()
+    rng = np.random.default_rng(11)
+    rand = lambda n: torch.as_tensor(rng.standard_normal(n), dtype=dtype, device="cuda")
+    if isinstance(op, ElementOperator):
+        o = op if op.Ae.dtype == dtype else ElementOperator(Ae=conv(op.Ae), cd=op.cd, n=op.n)
+        x = rand(o.n)
+        return [("scalar", lambda: o.matvec(x), lambda: K.scalar_matvec_plain(o.Ae, o.cd, x))]
+    ref = op.uu
+    o = op if ref.dtype == dtype else SaddleOperator(
+        uu=conv(op.uu), up=conv(op.up), pu=conv(op.pu), pp=conv(op.pp), cd_u=op.cd_u,
+        cd_p=op.cd_p, n_u_nodes=op.n_u_nodes, n_p=op.n_p)
+    n3 = 3 * o.n_u_nodes
+    x = rand(n3 + o.n_p)
+    out = [(o.mode, lambda: o.matvec(x),
+            lambda: K.saddle_matvec_plain(o.uu, o.up, o.pu, o.pp, o.cd_u, o.cd_p, x, o.mode,
+                                          o.n_u_nodes))]
+    if o.up is not None:
+        xp = rand(o.n_p)
+        out.append(("up", lambda: o.up_matvec(xp),
+                    lambda: K.saddle_matvec_plain(None, o.up, None, None, o.cd_u, o.cd_p, xp,
+                                                  "up", o.n_u_nodes)))
+    return out
+
+
+def check_dd_kernels(dd, tag):
+    """Every shard's K1/K2 cases (each operator of the DD step, on the
+    shard's own tables) against the plain version in f32 and f64 at
+    BARS of max|y|; one line per operator and case, the worst shard."""
+    import torch
+
+    for name, ops in dd.shard_operators().items():
+        worst = {}
+        for dtype in (torch.float32, torch.float64):
+            for j, op in enumerate(ops):
+                for label, kfn, pfn in dd_cases(op, dtype):
+                    y, y0 = kfn(), pfn()
+                    torch.cuda.synchronize()
+                    check(bool(torch.isfinite(y).all()), f"{tag} {name} shard {j}: non-finite")
+                    rel = float((y - y0).abs().max() / y0.abs().max().clamp_min(1e-300))
+                    key = (label, str(dtype)[6:])
+                    worst[key] = max(worst.get(key, 0.0), rel)
+                    check(rel <= BARS[str(dtype)[6:]],
+                          f"{tag} {name} {label} shard {j} {dtype}: kernel disagrees with plain")
+        print(f"[{tag}] {name:12s} " + ", ".join(
+            f"{lab} {dt}: {v:.2e} max|y| (bar {BARS[dt]:.0e})" for (lab, dt), v in worst.items())
+              + f" ({len(ops)} shards)", flush=True)
+
+
+def phase_dd(K, card_name, slice_counts=None):
+    """10: DDModel over a NCCL group of world size 1 with 4 local
+    shards, then the multi-process entry point.  Returns 10b's
+    launches."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0, timeout=datetime.timedelta(seconds=300))
+    try:
+        from nupgcm_tpu_torch.parallel.comm import ShardGroup
+
+        group = ShardGroup(DD_SHARDS, dist.group.WORLD)
+        check((group.world, group.L, group.backend) == (1, DD_SHARDS, "nccl"),
+              "10: not one NCCL rank holding every shard")
+        phase_dd_parity(group, card_name)
+        launches = phase_dd_slice(K, group, card_name, slice_counts)
+        one_rank = phase_dd_dryrun(card_name)
+    finally:
+        dist.destroy_process_group()
+    phase_dd_ranks(one_rank, card_name)
+    return launches
+
+
+def phase_dd_parity(group, card_name):
+    """10a: one f64 DD step against the single-device step."""
+    import torch
+
+    import nupgcm_tpu_torch as npg
+    from nupgcm_tpu_torch.parallel.dd import DDModel
+    from nupgcm_tpu_torch.tools._common import initial_b, mixing_setup
+
+    t0 = time.perf_counter()
+    model = mixing_setup(npg.generators.bowl3D(0.16, 0.5, nz=5), "cuda", torch.float64,
+                         t_stop=1.0, dt=1e-3, inv_atol=1e-10, inv_rtol=1e-10, evo_atol=1e-12,
+                         evo_rtol=1e-12, inv_itmax=400)
+    s0 = model.invert(model.set_b(model.rest_state(), initial_b))
+    s1, aux1 = model.step(s0)
+    dd = DDModel(model, DD_SHARDS, group)
+    sv, aux2 = dd.step(dd.to_dd(s0))
+    s2 = dd.from_dd(sv)
+    u_max, b_max = float(s1.u.abs().max()), float(s1.b.abs().max())
+    moved = float((s1.b - s0.b).abs().max())
+    du = float((s1.u - s2.u).abs().max()) / u_max
+    db = float((s1.b - s2.b).abs().max()) / b_max
+    print(f"[10a] bowl3D(0.16, 0.5, nz=5), {model.fe.n_inv} DoF, f64, {DD_SHARDS} shards on one "
+          f"NCCL rank, from set_b + invert: halo K (u, p, b) = ({dd.part_u.K}, {dd.part_p.K}, "
+          f"{dd.part_b.K}); FGMRES {aux1['inv_iters']} (one device) / {aux2['inv_iters']} (DD), "
+          f"CG {aux1['evo_iters']} / {aux2['evo_iters']}; max|u| {u_max:.3e}, max|b| "
+          f"{b_max:.3e}, max|b1 - b0| {moved:.3e}; max|du| {du:.3e} max|u|, max|db| {db:.3e} "
+          f"max|b| (bar {DD_PARITY_BAR:.0e}); {time.perf_counter() - t0:.2f} s ({card_name})",
+          flush=True)
+    check(u_max > 0 and moved > 1e-6 * b_max, "10a: the step left the state where it was")
+    check(du < DD_PARITY_BAR and db < DD_PARITY_BAR, "10a: the DD step disagrees with one device")
+    check(abs(aux1["inv_iters"] - aux2["inv_iters"]) <= 1, "10a: FGMRES counts differ by > 1")
+    check(abs(aux1["evo_iters"] - aux2["evo_iters"]) <= 1, "10a: CG counts differ by > 1")
+
+
+def phase_dd_slice(K, group, card_name, slice_counts):
+    """10b: the slice over 4 shards: kernels vs plain on every shard's
+    tables, then 10 DD steps against 10 single-device steps."""
+    import torch
+
+    import nupgcm_tpu_torch as npg
+    from nupgcm_tpu_torch.parallel.dd import DDModel
+    from nupgcm_tpu_torch.tools._common import initial_b, mixing_setup
+    from nupgcm_tpu_torch.tools.northstar import rel_l2
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = mixing_setup(npg.generators.bowl3D(0.08, 0.5, nz=9), "cuda", torch.float32)
+    fe = model.fe
+    check(fe.n_inv == 103862, f"10b: {fe.n_inv} inversion DoF, not 103,862")
+    state0 = model.invert(model.set_b(model.rest_state(), initial_b))
+    torch.cuda.synchronize()
+    st, sd = state0, []
+    for _ in range(10):
+        st, aux = model.step(st)
+        sd.append(aux)
+    t0 = time.perf_counter()
+    dd = DDModel(model, DD_SHARDS, group)
+    torch.cuda.synchronize()
+    print(f"[10b] slice, {fe.n_inv} DoF, f32, {model.preconditioner_branch}: DDModel over "
+          f"{DD_SHARDS} shards built in {time.perf_counter() - t0:.2f} s; halo K (u, p, b) = "
+          f"({dd.part_u.K}, {dd.part_p.K}, {dd.part_b.K}), chunks ({dd.part_u.chunk}, "
+          f"{dd.part_p.chunk}, {dd.part_b.chunk}), {dd.nc_max} cells a shard at most",
+          flush=True)
+    check_dd_kernels(dd, "10b kernels")
+
+    sv = dd.to_dd(state0)
+    torch.cuda.synchronize()
+    K.reset_counts()
+    group.reset_stats()
+    t0 = time.perf_counter()
+    auxs = []
+    for _ in range(10):
+        sv, aux = dd.step(sv)
+        auxs.append(aux)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = dict(K.launches), dict(K.plain_calls)
+    seconds, calls = dict(group.seconds), dict(group.calls)
+    for i, (a, b) in enumerate(zip(auxs, sd)):
+        check(a["evo_iters"] < model.evo_opts["itmax"], f"10b step {i + 1}: CG hit its cap")
+        check(a["inv_iters"] < model.inv_opts["itmax"], f"10b step {i + 1}: FGMRES hit its cap")
+        check(abs(int(a["evo_iters"]) - int(b["evo_iters"])) <= 1
+              and abs(int(a["inv_iters"]) - int(b["inv_iters"])) <= 1,
+              f"10b step {i + 1}: solver counts differ from one device's by > 1")
+    for k in ("u", "p", "b", "u_prev", "b_prev"):
+        check(bool(torch.isfinite(sv[k]).all()), f"10b: non-finite {k}")
+    check_path(model, K, "10b")
+    fmt = lambda rs, k: [int(a[k]) for a in rs]
+    print(f"[10b] 10 DD steps in {wall:.3f} s = {10 / wall:.3f} steps/s; FGMRES per step "
+          f"{fmt(auxs, 'inv_iters')} (one device from the same state {fmt(sd, 'inv_iters')}"
+          f"{'' if slice_counts is None else f', phase 4b {slice_counts[1]}'}), CG "
+          f"{fmt(auxs, 'evo_iters')} (one device {fmt(sd, 'evo_iters')}"
+          f"{'' if slice_counts is None else f', phase 4b {slice_counts[0]}'}) ({card_name})",
+          flush=True)
+    print(f"[10b] host time in shifts {seconds['shift']:.3f} s ({calls['shift']} calls) and "
+          f"reductions {seconds['reduce']:.3f} s ({calls['reduce']} calls): "
+          f"{100 * (seconds['shift'] + seconds['reduce']) / wall:.1f}% of the steps' wall; "
+          f"launches {launches} = per step { {k: v / 10 for k, v in launches.items() if v} }; "
+          f"plain calls {plain}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB ({card_name})", flush=True)
+    s_dd = dd.from_dd(sv)
+    eu = rel_l2(fe, s_dd.u.double().cpu().numpy(), st.u.double().cpu().numpy(), fe.cd_u,
+                fe.tab_u.phi)
+    eb = rel_l2(fe, s_dd.b.double().cpu().numpy(), st.b.double().cpu().numpy(), fe.cd_b,
+                fe.tab_b.phi)
+    print(f"[10b] step 10 against the single-device run: FE rel-L2 u {eu:.3e}, b {eb:.3e} "
+          f"(bar {DD_DISTANCE_BAR:.0e})", flush=True)
+    check(eu < DD_DISTANCE_BAR and eb < DD_DISTANCE_BAR, "10b: DD drifted from one device")
+    del model, dd, sv, st, state0
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_dd_dryrun(card_name):
+    """10c, first half: the multi-process entry point's run() over the
+    one-rank NCCL group (4 local shards) against run() with no process
+    group.  Returns the NCCL run's output."""
+    import torch.distributed as dist
+
+    from nupgcm_tpu_torch.tools import multihost_dryrun
+
+    t0 = time.perf_counter()
+    nccl = multihost_dryrun.run(DRYRUN_STEPS, DD_SHARDS, "cuda", dist.group.WORLD)
+    alone = multihost_dryrun.run(DRYRUN_STEPS, DD_SHARDS, "cuda")
+    rel = dryrun_rel(nccl, alone)
+    print(f"[10c] multihost_dryrun.run, {DRYRUN_STEPS} f64 steps over {DD_SHARDS} shards: "
+          f"one NCCL rank {dryrun_fmt(nccl)}; no process group: relative differences {rel} "
+          f"(bar {DD_DRYRUN_BAR:.0e}), FGMRES {alone['inv_iters']}; "
+          f"{time.perf_counter() - t0:.2f} s ({card_name})", flush=True)
+    check(nccl["n_processes"] == 1, "10c: the run was not on the one-rank group")
+    check(all(v < DD_DRYRUN_BAR for v in rel.values()), "10c: the NCCL run disagrees")
+    check(abs(nccl["inv_iters"] - alone["inv_iters"]) <= 1, "10c: FGMRES counts differ by > 1")
+    return nccl
+
+
+def dryrun_rel(a, b):
+    return {k: abs(a[k] - b[k]) / abs(b[k]) for k in DRYRUN_KEYS}
+
+
+def dryrun_fmt(out):
+    return (f"{ {k: out[k] for k in DRYRUN_KEYS} }, FGMRES {out['inv_iters']}, halo K "
+            f"{out['halo_K']}")
+
+
+def phase_dd_ranks(one_rank, card_name):
+    """10c, second half, on a machine with 4 or more cards: 4 processes
+    of the multi-process entry point, one NCCL rank of one shard on each
+    card, against the one-rank run."""
+    import torch
+
+    n = torch.cuda.device_count()
+    if n < DD_SHARDS:
+        print(f"[10c] 4 NCCL ranks not run: {n} card(s), and NCCL allows one rank a card",
+              flush=True)
+        return
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "nupgcm_tpu_torch.tools.multihost_dryrun", "--device", "cuda",
+         "--nproc", str(DD_SHARDS), "--pid", str(r), "--port", str(port),
+         "--local-shards", "1", "--steps", str(DRYRUN_STEPS)],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(DD_SHARDS)]
+    try:
+        results = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, (_, err)) in enumerate(zip(procs, results)):
+        check(p.returncode == 0, f"10c rank {r} failed (rc {p.returncode}):\n{err[-3000:]}")
+    got = [json.loads(out.strip().splitlines()[-1]) for out, _ in results]
+    rel = dryrun_rel(got[0], one_rank)
+    print(f"[10c] 4 NCCL ranks x 1 shard (4 cards): {dryrun_fmt(got[0])}; relative to one rank "
+          f"{rel} (bar {DD_DRYRUN_BAR:.0e}); {time.perf_counter() - t0:.1f} s ({card_name})",
+          flush=True)
+    check([g["process_id"] for g in got] == list(range(DD_SHARDS)), "10c: ranks out of order")
+    check(all(g[k] == got[0][k] for g in got for k in DRYRUN_KEYS), "10c: the ranks' norms differ")
+    check(all(v < DD_DRYRUN_BAR for v in rel.values()), "10c: 4 ranks disagree with one")
+
+
 def emit_tail(kernels, name_limit, kind, count):
     """The run's last three lines: the card, the kernels, the verdict."""
     print(name_limit)
@@ -965,6 +1299,10 @@ def main():
     phase_twogrid(K, name_limit)
     phase_channel(K, name_limit)
 
+    # 10. domain decomposition
+    dd_launches = phase_dd(K, name_limit, slice_counts=(
+        [int(a["evo_iters"]) for a in stats], [int(a["inv_iters"]) for a in stats]))
+
     check("jax" not in sys.modules, "JAX was imported")
     kernels = [
         {"name": r["name"], "route": "cuda", "source": SOURCES[r["entry"]],
@@ -973,6 +1311,8 @@ def main():
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
          "device_ms": r["device_ms"], "library_device_ms": r["library_device_ms"]}
         for r in (*results.values(), *probes.values())]
+    for entry, r in zip(kernels, results.values()):  # K1/K2 first: their DD launches
+        entry["dd_launches"] = dd_launches[r["counter"]]
     emit_tail(kernels, name_limit, kind, torch.cuda.device_count())
 
 

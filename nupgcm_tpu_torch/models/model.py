@@ -161,6 +161,24 @@ def _hms(seconds: float) -> str:
     return "%02d:%02d:%02d" % (s // 3600, (s % 3600) // 60, s % 60)
 
 
+def progress_message(i, i0, n_info, t, dt, t_stop, elapsed, since_last, aux) -> str:
+    """The run loop's progress block, field for field the reference's
+    (src/model.jl:172-192): step ``i`` (the run began at ``i0``) at time
+    ``t``; ``elapsed`` s since the run began, ``since_last`` s since the
+    previous block ``n_info`` steps ago; ``aux`` a step's diagnostics."""
+    msg = (f"t = {t:.3e}/{t_stop:.3e} (i = {i}, dt = {dt:.3e})\n"
+           f"time elapsed: {_hms(elapsed)}\n")
+    if i - i0 > n_info:
+        t_step = since_last / n_info
+        steps_left = max(0.0, (t_stop - t) // max(dt, 1e-30))
+        msg += (f"timestep duration ~ {t_step:.3e} s\n"
+                f"estimated time remaining: {_hms(t_step * steps_left)}\n")
+    return msg + (f"|u|max = {aux['u_max']:.3e}, CFL dt ~ {aux['cfl_dt']:.3e}\n"
+                  f"{aux['b_free_min']:.3e} <= b_free <= {aux['b_free_max']:.3e}, "
+                  f"|db/dt|max = {aux['db_dt_max']:.3e}\n"
+                  f"evo_it = {int(aux['evo_iters'])}, inv_it = {int(aux['inv_iters'])}")
+
+
 class PGModel:
     """Planetary-geostrophic model on one torch device.
 
@@ -1272,19 +1290,8 @@ class PGModel:
                     f"Blow-up detected at step {i}: |u|max={u_max:.3e} |b|max={b_max:.3e}")
             if n_info and i % n_info == 0:
                 t1 = time.time()
-                dt_ = float(state.dt)
-                msg = (f"t = {float(state.t):.3e}/{t_stop:.3e} (i = {i}, dt = {dt_:.3e})\n"
-                       f"time elapsed: {_hms(t1 - t0)}\n")
-                if i - i0 > n_info:
-                    t_step = (t1 - t_last_info) / n_info
-                    steps_left = max(0.0, (t_stop - float(state.t)) // max(dt_, 1e-30))
-                    msg += (f"timestep duration ~ {t_step:.3e} s\n"
-                            f"estimated time remaining: {_hms(t_step * steps_left)}\n")
-                msg += (f"|u|max = {u_max:.3e}, CFL dt ~ {aux['cfl_dt']:.3e}\n"
-                        f"{aux['b_free_min']:.3e} <= b_free <= {aux['b_free_max']:.3e}, "
-                        f"|db/dt|max = {aux['db_dt_max']:.3e}\n"
-                        f"evo_it = {int(aux['evo_iters'])}, inv_it = {int(aux['inv_iters'])}")
-                log(msg)
+                log(progress_message(i, i0, n_info, float(state.t), float(state.dt), t_stop,
+                                     t1 - t0, t1 - t_last_info, aux))
                 t_last_info = t1
                 sys.stdout.flush()
             if n_save and i % n_save == 0 and save_callback is not None:

@@ -6,6 +6,12 @@ and ``nupgcm_tpu.solvers.cg``: stop when ||r||_2 <= atol + rtol *
 ||r0||_2, cap at itmax iterations (itmax = 0 means 2N).  The loop runs
 on the host; the stopping test reads one scalar from the device per
 iteration.
+
+``reduce`` is the counterpart of the JAX solver's ``psum_axis``: when
+the vectors are one rank's part of a distributed vector, every inner
+product is this rank's partial and ``reduce`` sums it over the ranks.
+The stopping test then reads a reduced value, so every rank takes the
+same branch.
 """
 
 from __future__ import annotations
@@ -27,12 +33,15 @@ def _safe(v: torch.Tensor) -> torch.Tensor:
     return torch.where(v == 0, torch.ones_like(v), v)
 
 
-def cg(op, b, x0, *, M_diag_inv=None, M=None, atol=1e-6, rtol=1e-6, itmax=0):
+def cg(op, b, x0, *, M_diag_inv=None, M=None, atol=1e-6, rtol=1e-6, itmax=0,
+       reduce=None):
     """Solve op(x) = b with preconditioned CG.
 
     op: callable x -> A x (SPD on the relevant subspace)
     M_diag_inv: diagonal preconditioner entries (1/diag), or
     M: callable r -> M^{-1} r (overrides M_diag_inv)
+    reduce: None, or a callable that sums a local inner product over
+    the ranks holding the rest of the vectors
     Returns (x, SolveStats).
     """
     if itmax == 0:
@@ -42,23 +51,28 @@ def cg(op, b, x0, *, M_diag_inv=None, M=None, atol=1e-6, rtol=1e-6, itmax=0):
     if M is None:
         M = lambda r: r
 
+    if reduce is None:
+        dot = torch.dot
+    else:
+        dot = lambda u, v: reduce(torch.dot(u, v))
+
     x = x0
     r = b - op(x0)
     z = M(r)
     p = z
-    rz = torch.dot(r, z)
-    rnorm = float(torch.sqrt(torch.dot(r, r)))
+    rz = dot(r, z)
+    rnorm = float(torch.sqrt(dot(r, r)))
     tol = atol + rtol * rnorm
     k = 0
     while rnorm > tol and k < itmax:
         Ap = op(p)
-        alpha = rz / _safe(torch.dot(p, Ap))
+        alpha = rz / _safe(dot(p, Ap))
         x = x + alpha * p
         r = r - alpha * Ap
         z = M(r)
-        rz_new = torch.dot(r, z)
+        rz_new = dot(r, z)
         p = z + (rz_new / _safe(rz)) * p
         rz = rz_new
         k += 1
-        rnorm = float(torch.sqrt(torch.dot(r, r)))
+        rnorm = float(torch.sqrt(dot(r, r)))
     return x, SolveStats(iterations=k, residual=rnorm, converged=rnorm <= tol)

@@ -19,6 +19,12 @@ iteration (which the stopping test needs anyway).
 Stopping: ||r_pre|| <= atol + rtol * ||r0_pre|| in the preconditioned
 residual norm for left preconditioning (Krylov.jl semantics), true
 residual norm for FGMRES.
+
+``reduce`` is the counterpart of the JAX solver's ``psum_axis``: the
+vectors are one rank's part of a distributed vector, the Gram-Schmidt
+products and norms are this rank's partials, and ``reduce`` sums them
+over the ranks.  The Hessenberg recurrence and every stopping test then
+read reduced values, identical on every rank.
 """
 
 from __future__ import annotations
@@ -38,11 +44,13 @@ def _givens(a, b):
 
 
 def gmres(op, b, x0, *, M=None, m=20, atol=1e-6, rtol=1e-6, itmax=0,
-          flexible=False):
+          flexible=False, reduce=None):
     """Solve op(x) = b with restarted (F)GMRES(m).
 
     op: callable x -> A x.
     M: preconditioner callable r -> M^{-1} r (left unless flexible).
+    reduce: None, or a callable that sums local inner products (a
+    scalar or a vector of them) over the ranks.
     Returns (x, SolveStats).
     """
     n = b.shape[0]
@@ -56,8 +64,10 @@ def gmres(op, b, x0, *, M=None, m=20, atol=1e-6, rtol=1e-6, itmax=0,
         r = b - op(x)
         return r if flexible else M(r)
 
+    red = (lambda v: v) if reduce is None else reduce
+
     def norm(v):
-        return torch.sqrt(torch.dot(v, v))
+        return torch.sqrt(red(torch.dot(v, v)))
 
     def cycle(x, r):
         """One restart cycle from residual r; returns (x_new, resid, inner_iters)."""
@@ -78,9 +88,9 @@ def gmres(op, b, x0, *, M=None, m=20, atol=1e-6, rtol=1e-6, itmax=0,
             else:
                 w = M(op(V[j]))
             Vj = V[: j + 1]
-            h1 = Vj @ w
+            h1 = red(Vj @ w)
             w = w - Vj.T @ h1
-            h2 = Vj @ w
+            h2 = red(Vj @ w)
             w = w - Vj.T @ h2
             hnorm = norm(w)
             V[j + 1] = w / _safe(hnorm)

@@ -206,12 +206,14 @@ class BlockStokesPrecond:
     saddle_coarse: object = None  # optional SaddleCoarseCorrection
     outer_op: callable = None  # full masked saddle operator (for
     #                            residuals of the saddle coarse step)
+    reduce: callable = None  # the inner Krylov solves' reduction hook
+    #                          (distributed vectors; solvers/gmres.py)
 
     def _solve_p(self, rp: torch.Tensor) -> torch.Tensor:
         if self.method == "cg":
             zp, _ = cg(self.mp_op, rp, torch.zeros_like(rp),
                        M_diag_inv=self.mp_diag_inv,
-                       atol=0.0, rtol=1e-8, itmax=self.inner_iters_p)
+                       atol=0.0, rtol=1e-8, itmax=self.inner_iters_p, reduce=self.reduce)
             return zp
         # pressure mass is well conditioned under Jacobi: tight ratio
         return chebyshev(self.mp_op, self.mp_diag_inv, rp,
@@ -247,13 +249,13 @@ class BlockStokesPrecond:
             zu, _ = gmres(self.ublock_op, ru, torch.zeros_like(ru),
                           M=lambda v: self.visc_diag_inv * v,
                           m=self.inner_iters_u, atol=0.0, rtol=1e-8,
-                          itmax=self.inner_iters_u)
+                          itmax=self.inner_iters_u, reduce=self.reduce)
         elif self.method == "chebyshev":
             zu = self._chebyshev_u(ru)
         else:
             zu, _ = cg(self.visc_op, ru, torch.zeros_like(ru),
                        M_diag_inv=self.visc_diag_inv,
-                       atol=0.0, rtol=1e-8, itmax=self.inner_iters_u)
+                       atol=0.0, rtol=1e-8, itmax=self.inner_iters_u, reduce=self.reduce)
         if self.coarse is not None:
             # V-cycle: pre-smooth (above), coarse solve, post-smooth
             zu = self.coarse(self.visc_op, ru, zu)

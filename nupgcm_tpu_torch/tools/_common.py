@@ -38,10 +38,10 @@ def card_name_limit() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def mixing_setup(mesh, device="cuda", dtype=torch.float32, t_stop=None, eps=2e-1,
+def mixing_setup(mesh, device="cuda", dtype=torch.float32, t_stop=None, eps=2e-1, dt=None,
                  **model_kw) -> PGModel:
-    """The bench.py bowl-mixing configuration (dt = 1e-4 mu/(alpha eps)^2,
-    BDF2 to ``t_stop``, default 50 dt)."""
+    """The bench.py bowl-mixing configuration (dt = 1e-4 mu/(alpha eps)^2
+    unless given, BDF2 to ``t_stop``, default 50 dt)."""
     alpha, mu = 0.5, 1e1
     params = Parameters(
         eps=eps, alpha=alpha, mu_rho=mu, N2=1 / alpha,
@@ -57,7 +57,7 @@ def mixing_setup(mesh, device="cuda", dtype=torch.float32, t_stop=None, eps=2e-1
         u_diri_masks=[(True, True, True), (True, True, True), (False, False, True)],
         b_diri_tags=["coastline", "surface"], b_diri_vals=[0.0, 0.0])
     fe = FEData(mesh, spaces)
-    dt = 1e-4 * mu / (alpha * eps) ** 2
+    dt = 1e-4 * mu / (alpha * eps) ** 2 if dt is None else dt
     ts = BDF2(t_start=0, t_stop=50 * dt if t_stop is None else t_stop, dt=dt)
     return PGModel(fe, params, forc, ts, dtype=dtype, device=device, **model_kw)
 

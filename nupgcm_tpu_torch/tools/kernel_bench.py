@@ -13,7 +13,9 @@ library yardstick, never used by the port):
               where it outlasts the device work)
   device_ms   device time per call: the busy time of a torch.profiler
               trace of 20 calls (every kernel, copy and fill the call
-              runs on the card)
+              runs on the card), kept only if the trace holds every
+              call's device events (counted from traces of one and two
+              calls), else not measured (None)
   host_us     host time per call: time.perf_counter around 1,000 calls,
               read before the synchronise
   bound_ms    the larger of the bytes (each input read once, each output
@@ -212,16 +214,35 @@ def host_us(fn, n=1000):
     return 1e6 * t / n
 
 
-def device_ms(fn, n=20, tries=3):
-    """Device busy ms per call over a profiler trace of ``n`` calls
-    (retried when a trace holds no device work, which the profiler
-    sometimes returns); None if no try saw any."""
-    from nupgcm_tpu_torch.tools._common import device_times
+def _trace(fn, k):
+    """(device busy us, device events) of a profiler trace of ``k`` calls."""
+    import tempfile
 
+    from nupgcm_tpu_torch.utils.timing import device_trace, trace_summary
+
+    with tempfile.TemporaryDirectory() as d:
+        with device_trace(d) as path:
+            for _ in range(k):
+                fn()
+        summ = trace_summary(path)
+    return summ["busy_us"], sum(c for c, _ in summ["by_name"].values())
+
+
+def device_ms(fn, n=20, tries=3):
+    """Device busy ms per call over a profiler trace of ``n`` calls.  The
+    profiler sometimes drops device events, and a trace that missed
+    calls reads too little busy time, so a trace is kept only if it
+    holds the events that traces of one and two calls (E1, E2: the most
+    of ``tries`` each) say ``n`` calls make, E1 + (n - 1)(E2 - E1); E1
+    may hold events a trace makes once, whatever its length.  None if
+    no try held them."""
+    e1, e2 = (max(_trace(fn, k)[1] for _ in range(tries)) for k in (1, 2))
+    if e2 <= e1:
+        return None
     for _ in range(tries):
-        busy, _ = device_times(lambda k: [fn() for _ in range(k)], n, "cuda", "")
-        if busy is not None:
-            return busy
+        busy, events = _trace(fn, n)
+        if events >= e1 + (n - 1) * (e2 - e1):
+            return busy / n / 1e3
     return None
 
 

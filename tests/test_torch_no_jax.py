@@ -18,6 +18,8 @@ def test_port_imports_without_jax():
             "from nupgcm_tpu_torch.utils import misc, pointeval, timing\n"
             "from nupgcm_tpu_torch import plotting, postprocess\n"
             "from nupgcm_tpu_torch.tools import column, eigen\n"
+            "from nupgcm_tpu_torch.parallel import comm, dd\n"
+            "from nupgcm_tpu_torch.tools import multihost_dryrun\n"
             "from nupgcm_tpu_torch.examples import (bowl_mixing, channel_spinup,\n"
             "                                       convergence, sphere)\n"
             "from nupgcm_tpu_torch.solvers.preconditioners import (CoarseCorrection,\n"

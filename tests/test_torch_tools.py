@@ -254,6 +254,28 @@ def test_chip_smoke_fails_without_cuda_or_without_the_repo(tmp_path):
     assert proc.returncode != 0 and '"ok"' not in proc.stdout
 
 
+@pytest.mark.parametrize("n_traces, expect", [
+    ([(150.0, 30), (200.0, 41)], 0.01),        # the first trace missed calls
+    ([(150.0, 30), (140.0, 28), (10.0, 2)], None),  # every try missed calls
+])
+def test_device_ms_keeps_no_trace_that_missed_calls(monkeypatch, n_traces, expect):
+    """kernel_bench.device_ms keeps a trace of 20 calls only if it holds
+    E1 + 19 (E2 - E1) device events (traces of one and two calls: here
+    one event a trace makes once and two a call); chip_smoke.py fails
+    on a device time below its bound, and takes None as not measured."""
+    from nupgcm_tpu_torch.tools import kernel_bench as kb
+
+    traces = {1: iter([(10.0, 3)] * 3), 2: iter([(20.0, 5)] * 3), 20: iter(n_traces)}
+    monkeypatch.setattr(kb, "_trace", lambda fn, k: next(traces[k]))
+    got = kb.device_ms(lambda: None)
+    assert got == pytest.approx(expect) if expect is not None else got is None
+    cs = _chip_smoke()
+    cs.check_bound(None, 1.0, "case")
+    cs.check_bound(1.0, 1.0, "case")
+    with pytest.raises(RuntimeError, match="below the bound"):
+        cs.check_bound(0.5, 1.0, "case")
+
+
 def test_chip_smoke_csr_yardstick_matches_plain(small):
     """The library yardstick of chip_smoke.py (tools/kernel_bench.py):
     every kernel case's operator assembled to CSR gives the plain

@@ -11,7 +11,15 @@ then compared two different dof layouts.  Importing this module builds
 the library through the port's locked, atomic build, at collection, so
 each worker finds it complete before any test runs;
 ``assert_same_rcm_branch`` makes a split fail loudly.
+
+``one_thread`` runs a test on one intra-op thread: the domain
+decomposition tests make many small tensor operations, which one
+thread runs as fast, and the suite's parallel workers (and the gloo
+processes those tests spawn) then do not oversubscribe the cores.
 """
+
+import pytest
+import torch
 
 from nupgcm_tpu_torch.mesh import native as _native_t
 
@@ -25,3 +33,11 @@ def assert_same_rcm_branch():
     t, j = _native_t.load() is not None, native_j.load() is not None
     assert t == j, (f"native RCM loaded in nupgcm_tpu_torch: {t}, in nupgcm_tpu: {j}; "
                     "their dof layouts differ")
+
+
+@pytest.fixture
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
