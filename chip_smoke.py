@@ -17,7 +17,8 @@ Phases (any failed check raises, and the script exits non-zero):
      different order on every run.  Then, in f32, every case is timed
      beside the CSR library call (tools/kernel_bench.py): wrapper time
      (CUDA events around 20 calls in a row, median of 10 batches),
-     device time (profiler busy time over 20 calls), host µs per call
+     device time (profiler busy time over 20 calls, and CUDA events
+     around a CUDA-graph replay of 20 calls), host µs per call
      (1,000 calls before the synchronise) and the bound.
   3c. edge cases: every phase-3 case with the cells in a shuffled order
      (the widest block dof lists) and with blocks of 12 or 20 cells (a
@@ -41,8 +42,9 @@ Phases (any failed check raises, and the script exits non-zero):
      finite, every solve stays under its cap, every probe launched and
      no plain version ran.
   7. trace: 5 steps under utils.timing.device_trace (Chrome trace in
-     out/trace/); the device-busy share and the top kernels by device
-     time.
+     out/trace/); the device-busy share, the launches whose device
+     event the trace lacks (utils.timing.lost_events), and the top
+     kernels by device time.
   8. full physics (convection + eddy closures, wind, refresh_precond):
      8a. tools.northstar.build_model("full") on its generated
          bowl3D(0.1, 0.5, nz=7), in f32 and then in f64:
@@ -139,24 +141,78 @@ Phases (any failed check raises, and the script exits non-zero):
           the one-rank run.  A one-card machine prints that the
           4-rank run was not made.
 
-One phase runs alone from a script that loads this file with importlib
-and calls its function (for example phase_dd after build.load()).
+  11. the 0.87M-DoF bowl and the reference-interop checks:
+     11a. tools/measure_l2's mode "base" on bowl3D(0.033, 0.5, nz=12)
+          (36,096 vertices, 198,864 tets, 0.87M inversion DoF) in f32
+          with the solver defaults (the aggregate level on): build
+          (mesh, FEData, operators and the host aggregate level apart),
+          invert twice, two blocks of 5 steps from the set_b state, the
+          second timed.  Vertices, tets, DoF, aggregates, build split,
+          invert s and FGMRES count, every step's CG and FGMRES counts
+          and residuals, steps/s, peak memory and launches per step by
+          mode and local size.  No solve at its cap, finite residuals
+          and max|b|, every K1/K2 counter launched, no plain call.
+     11b. retune(saddle_coarse_inner=0) on the same model (mode "k0"),
+          5 steps, the same prints and checks; where 11a already ran at
+          k = 0 (the default with the aggregate level and the Chebyshev
+          smoother), its counts must be 11a's, each within 1.  Then the device-busy
+          share of 3 profiled steps after set_b + invert, from a trace
+          that lost no device event of the steps (kernel_bench.busy_share:
+          a pad of spin kernels opens the trace; up to 5 tries, "not
+          measured" otherwise), beside the wall of 3 unprofiled steps.
+     11c. every K1/K2 case of that model against its plain version at
+          the phase-3 bars, timed as phase 3; every case reads a device
+          time at or above its bound.
+     11d. on the slice model: FEData.plan_inv assembles elem_inversion
+          (computed afresh from the model's tables) into a COOMatrix on
+          the card, and its SpMV matches K1 "full" on the unmasked
+          saddle operator; FEData.plan_b assembles the evolution matrix
+          against K2 (seeded x; max|dy| below 2e-6 of max|y|).  Then
+          10 profiler traces of 20 K1 full calls
+          (tools/trace_check.compare): the events each lost, beside a
+          CUDA-graph replay timed by CUDA events; every profiler reading
+          the acceptance rules let through (each complete trace, and
+          kernel_bench.device_ms where it reads a time) must lie within
+          0.85 to 1.1 times the replay's.
+     11e. with TF32 switched on process-wide
+          (torch.set_float32_matmul_precision("high"), allow_tf32), the
+          phase-5 golden run again with the model's default
+          matmul_precision="float32": phase 5's bar, and phase 5's
+          states within 1e-5 of max|u| and max|b| (ten times the
+          solves' rtol: two float32 runs differ by the atomics' order
+          alone); then once with
+          matmul_precision=None, its distance printed without a bar.
+          The flags the model found are in force after each run, and the
+          script's own are restored at the end.
+
+Every K1/K2 and probe case of phases 3, 3b, 8b and 11c reads two
+device times: the profiler's busy time (kernel_bench.device_ms; None
+when no trace held every call, which happens late in a long process)
+and a CUDA-graph replay of 20 calls timed by CUDA events
+(kernel_bench.graph_ms, which needs no profiler and is always read).
+Both must be at or above the bound, and the busy time at most 1.1
+times the replay's.  One phase runs alone from a script that loads this file
+with importlib and calls its function (for example phase_dd after
+build.load()).
 
 Phases 3 and 8b time each kernel case beside one library call that
 computes the same function: cuSPARSE through torch.sparse.mm on the
 operator assembled to CSR here (never in the port).  Each kernel's
 bound is the larger of its bytes (each input read once, each output
 written once) over 3.35 TB/s and its multiply-adds over 67 TFLOP/s
-(H100 SXM f32 without tensor cores); a device time below its bound
-fails the run (it can only be a trace that missed calls).  Phases 4
+(H100 SXM f32 without tensor cores), the CSR call's the same with
+its matrix's values and indices in place of the element tensors; a
+device time below its bound fails the run (it can only be a fault of
+the measurement).  Phases 4
 and 8 print the launches per mode and local size
 (kernels.shape_launches).
 
 Phases run in the order 1, 2, 4a (build the slice), 3, 3c, 3b, 4b
-(step it), 6, 7, 5 (with the 2D edge cases), 8a, 8b, 9a-9d, 10a-10c.  The last
-three lines are the card's name and power limit, a JSON object {"kernels": [...]}
-(K1/K2 entries also carry "dd_launches", their launches in 10b's DD steps),
-and {"ok": true, "device": {...}}.
+(step it), 6, 7, 5 (with the 2D edge cases), 8a, 8b, 9a-9d, 10a-10c, 11a-11e.
+The last three lines are the card's name and power limit, a JSON object
+{"kernels": [...]} (K1/K2 entries also carry "dd_launches", their
+launches in 10b's DD steps, and "bowl_launches", in 11a's run), and
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -201,6 +257,21 @@ DD_DISTANCE_BAR = 1e-9
 DD_DRYRUN_BAR = 1e-11
 DRYRUN_STEPS = 3
 DRYRUN_KEYS = ("u2", "p2", "b2", "u_max", "b_max")  # of multihost_dryrun.run
+BOWL = (0.033, 12)  # 11: bowl3D(h, 0.5, nz), 0.87M inversion DoF
+BOWL_STEPS = 5
+# 11d (f32), max|y_assembled - y_kernel| relative to max|y|
+ASSEMBLED_BAR = 2e-6
+# 11d, device_ms against a CUDA-graph replay of the same calls: within
+# these times the replay's.  The replay also counts the gaps between
+# kernels (device_ms read 0.937-0.974 of it on an NVIDIA H100 80GB
+# HBM3); a trace that lost 3 of its 20 calls reads below 0.85
+GRAPH_BARS = (0.85, 1.1)
+# 11e (f32), the golden run under a TF32 process against phase 5's,
+# max|du|, max|db| relative to max|u|, max|b|: ten times the solves'
+# rtol, since two float32 runs that sum K1/K2's atomics in another
+# order stop their solves at rtol 1e-6 apart (5.6e-7 to 7.5e-7 on an
+# NVIDIA H100 80GB HBM3); TF32 products move the state by 4e-3 to 5e-3
+PRECISION_BAR = 1e-5
 
 
 def check(cond, msg):
@@ -226,8 +297,9 @@ def phase_kernels(model, K, card_name, tag="kernels", Kv_e=None):
                                                                    flush=True), tag=tag)
         check(rec["lib_rel_err"] <= BARS["float32"],
               f"{name} {case['label']}: the CSR yardstick disagrees with plain")
-        for key in ("device_ms", "library_device_ms"):
-            check_bound(rec[key], rec["bound_ms"], f"{name} {case['label']} {key}")
+        check_device(rec, f"{name} {case['label']}")
+        check_bound(rec["library_device_ms"], rec["library_bound_ms"],
+                    f"{name} {case['label']} library_device_ms")
         top = results.setdefault(name, dict(rec, name=name, max_abs_err=0.0, cases=[],
                                             counter="scalar" if case["mode"] is None
                                             else f"saddle_{case['mode']}"))
@@ -236,11 +308,28 @@ def phase_kernels(model, K, card_name, tag="kernels", Kv_e=None):
     return results
 
 
-def check_bound(device_ms, bound_ms, what):
+def check_device(rec, what):
+    """A kernel case's two device times (``rec`` of kernel_bench): the
+    CUDA-graph replay, always read, and the profiler's busy time, where
+    a trace held every call, both at or above the bound; the busy time
+    at most GRAPH_BARS[1] times the replay's, which also counts the
+    gaps between kernels."""
+    check_bound(rec["graph_ms"], rec["bound_ms"], f"{what} graph_ms", required=True)
+    check_bound(rec["device_ms"], rec["bound_ms"], f"{what} device_ms")
+    check(rec["device_ms"] is None or rec["device_ms"] <= GRAPH_BARS[1] * rec["graph_ms"],
+          f"{what}: device_ms {rec['device_ms']} above {GRAPH_BARS[1]} times the CUDA-graph "
+          f"replay's {rec['graph_ms']:.4f} ms")
+
+
+def check_bound(device_ms, bound_ms, what, required=False):
     """No device time can fall below the bound: a reading that does is a
     fault of the measurement (kernel_bench.device_ms keeps no trace that
-    missed calls, so none should reach here)."""
-    if device_ms is not None and device_ms < bound_ms:
+    missed calls, so none should reach here).  ``required``: a device
+    time that was not measured (None) fails too."""
+    if device_ms is None:
+        check(not required, f"{what}: not measured")
+        return
+    if device_ms < bound_ms:
         raise RuntimeError(f"{what}: {device_ms:.4f} ms on the device, below the bound "
                            f"{bound_ms:.4f} ms")
 
@@ -323,14 +412,15 @@ def probe_check(name, dtype, out, ref, scale, scale_name, card_name, kfn, pfn, w
     if dtype == torch.float32:
         rec["ms"], rec["plain_ms"] = kb.median_ms(kfn), kb.median_ms(pfn)
         rec["device_ms"], rec["host_us"] = kb.device_ms(kfn), kb.host_us(kfn)
+        rec["graph_ms"] = kb.graph_ms(kfn)
         rec["bound_ms"], rec["bound_by"] = kb.bound(*work)
         rec["library_ms"] = rec["library_device_ms"] = None
         dev = "not measured" if rec["device_ms"] is None else f"{rec['device_ms']:.4f} ms"
         print(f"[probes] {name:22s} f32: {rec['ms']:.4f} ms kernel (device "
-              f"{dev}, host {rec['host_us']:.1f} us), "
+              f"{dev}, graph replay {rec['graph_ms']:.4f} ms, host {rec['host_us']:.1f} us), "
               f"{rec['plain_ms']:.4f} ms plain, bound {rec['bound_ms']:.4f} ms "
               f"({rec['bound_by']}) ({card_name})", flush=True)
-        check_bound(rec["device_ms"], rec["bound_ms"], f"{name} device_ms")
+        check_device(rec, name)
     return rec
 
 
@@ -453,12 +543,13 @@ def phase_trace(model, state, card_name):
             state, _ = model.step(state)
         torch.cuda.synchronize()
         wall_prof = time.perf_counter() - t0
-    summ = timing.trace_summary(path)
+    summ, rec = timing.trace_summary(path), timing.lost_events(path)
     busy = summ["busy_us"] / 1e6
     check(busy > 0, "trace: the profiler saw no device work")
     print(f"[trace] 5 steps: device busy {busy * 1e3:.3f} ms of {wall_prof * 1e3:.3f} ms "
           f"profiled wall ({100 * busy / wall_prof:.1f}%), of {wall * 1e3:.3f} ms unprofiled "
-          f"wall ({100 * busy / wall:.1f}%); trace {pathlib.Path(path).relative_to(ROOT)} "
+          f"wall ({100 * busy / wall:.1f}%); {len(rec['lost'])} of {rec['launches']} launches "
+          f"without a device event; trace {pathlib.Path(path).relative_to(ROOT)} "
           f"({card_name})", flush=True)
     total = sum(us for _, us in summ["by_name"].values())
     for name, (calls, us) in list(summ["by_name"].items())[:10]:
@@ -1148,6 +1239,218 @@ def phase_dd_ranks(one_rank, card_name):
     check(all(v < DD_DRYRUN_BAR for v in rel.values()), "10c: 4 ranks disagree with one")
 
 
+def golden_run(card_name, tag="golden", hold=True, **model_kw):
+    """The bowl2D mixing run in f32 to the time of
+    tests/data/bowl_mixing_2d.npz, held to its 1e-3 bar (printed
+    without it where ``hold`` is False).  Returns the model and its
+    final state."""
+    import torch
+
+    import nupgcm_tpu_torch as npg
+    from nupgcm_tpu_torch.tools._common import mixing_setup
+    from nupgcm_tpu_torch.tools.northstar import rel_l2
+
+    t0 = time.perf_counter()
+    ref = np.load(ROOT / "tests" / "data" / "bowl_mixing_2d.npz")
+    golden = mixing_setup(npg.generators.bowl2D(0.1, 0.5), "cuda", torch.float32,
+                          t_stop=2 * float(ref["t"]), **model_kw)
+    n_steps = round(float(ref["t"]) / golden.ts.dt)
+    st = golden.run(golden.rest_state(), n_info=0, max_steps=n_steps)
+    fe = golden.fe
+    us, bs = fe.spaces.u_space, fe.spaces.b_space
+    ref_b = bs.from_original_order(ref["b"])
+    ref_u = np.stack([us.from_original_order(ref["u"].reshape(-1, 3)[:, k])
+                      for k in range(3)], axis=1)
+    eb = rel_l2(fe, st.b.double().cpu().numpy(), ref_b, fe.cd_b, fe.tab_b.phi)
+    eu = rel_l2(fe, st.u.double().cpu().numpy(), ref_u, fe.cd_u, fe.tab_u.phi)
+    print(f"[{tag}] bowl2D h=0.1, {st.step} f32 BDF2 steps to t = {float(st.t):.7f} "
+          f"(golden t = {float(ref['t']):.7f}), matmul_precision "
+          f"{golden.matmul_precision!r}, on the card in {time.perf_counter() - t0:.2f} s: "
+          f"FE rel-L2 b = {eb:.3e}, u = {eu:.3e} ({'bar 1e-3' if hold else 'no bar'}) "
+          f"({card_name})", flush=True)
+    check(st.step == n_steps and abs(float(st.t) - float(ref["t"])) < 1e-5,
+          f"{tag}: golden run stopped at another time")
+    check(not hold or (eb < 1e-3 and eu < 1e-3), f"{tag}: golden run disagrees with the golden file")
+    return golden, st
+
+
+def phase_bowl(K, card_name):
+    """11a-11c: the 0.87M-DoF bowl with the aggregate level: measure_l2's
+    modes "base" and "k0", the device-busy share of 3 steps, then every
+    K1/K2 case against plain.  Returns 11a's launches."""
+    import torch
+
+    from nupgcm_tpu_torch.tools import kernel_bench as kb
+    from nupgcm_tpu_torch.tools import measure_l2
+    from nupgcm_tpu_torch.tools._common import initial_b
+
+    torch.cuda.synchronize()
+    model, info = measure_l2.build(*BOWL, "cuda", torch.float32)
+    print(f"[11a] bowl3D({BOWL[0]}, 0.5, nz={BOWL[1]}): {info['n_vertices']} vertices, "
+          f"{info['n_cells']} tets, {info['n_dof']} inversion DoF, {info['n_agg']} aggregates; "
+          f"preconditioner {info['preconditioner']}, inner_method {model.inner_method}, "
+          f"saddle_coarse_inner {model.saddle_coarse_inner}; build {info['build_s']:.2f} s = "
+          f"mesh {info['mesh_s']:.2f} + Spaces/FEData {info['fedata_s']:.2f} + operators "
+          f"{info['operators_s']:.2f} + host aggregate level {info['aggregate_s']:.2f}; peak "
+          f"{info['build_peak_mib']:.1f} MiB ({card_name})", flush=True)
+    check(info["preconditioner"] == "iterative saddle coarse + L2 aggregate level",
+          "11a: not the aggregate branch")
+    log = lambda *a: print("[11 measure_l2]", *a, flush=True)
+    torch.cuda.synchronize()
+    K.reset_counts()
+    base = measure_l2.run("base", model=model, info=info, steps=BOWL_STEPS, log=log)
+    launches = check_path(model, K, "11a")
+    check(base["inv_iters"] < model.inv_opts["itmax"], "11a: the invert hit its cap")
+    bowl_report("11a", model, base, card_name)
+    K.reset_counts()
+    k0 = measure_l2.run("k0", model=model, info=info, steps=BOWL_STEPS, log=log)[0]
+    check_path(model, K, "11b")
+    bowl_report("11b", model, k0, card_name)
+    if base["k"] == 0:  # the same solves; K1/K2's atomics may move a count by one
+        check(all(abs(a[k] - b[k]) <= 1 for a, b in zip(k0["steps"], base["steps"])
+                  for k in ("evo_iters", "inv_iters")),
+              "11b: k = 0 by retune counts otherwise than 11a's default k = 0")
+    state = model.invert(model.set_b(model.rest_state(), initial_b))
+    torch.cuda.synchronize()
+    t0, st = time.perf_counter(), state
+    for _ in range(3):  # the same 3 steps as the profiled ones
+        st, _ = model.step(st)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    share, wall, _, lost = kb.busy_share(model, state, n=3)
+    busy = ("not measured" if share is None else
+            f"{1e3 * share * wall:.3f} ms = {100 * share:.1f}% of the profiled wall {wall:.3f} s "
+            f"and {100 * share * wall / plain_wall:.1f}% of the unprofiled {plain_wall:.3f} s")
+    print(f"[11a] device busy over 3 steps after set_b + invert: {busy}; launches lost per "
+          f"trace, of the steps and of the pad: {lost} ({card_name})", flush=True)
+    phase_kernels(model, K, card_name, tag="11c kernels")
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def bowl_report(tag, model, rec, card_name):
+    """Print and check one measure_l2 record of phase 11."""
+    steps = rec["steps"]
+    print(f"[{tag}] k = {rec['k']}: "
+          + (f"invert {rec['inv_seconds']:.3f} s, FGMRES {rec['inv_iters']} "
+             f"(residual {rec['inv_res_invert']:.2e}); " if "inv_seconds" in rec else "")
+          + f"{len(steps)} timed steps at {rec['steps_per_s']:.3f} steps/s (first block "
+          f"{rec.get('first_block_s', rec.get('compile_s')):.3f} s); peak "
+          f"{rec['peak_mib']:.1f} MiB; max|b| {rec['b_max']:.4e} ({card_name})", flush=True)
+    for i, st in enumerate(steps):
+        print(f"[{tag}] step {i + 1}: CG {st['evo_iters']} (res {st['evo_res']:.2e}), FGMRES "
+              f"{st['inv_iters']} (res {st['inv_res']:.2e})", flush=True)
+    print(f"[{tag}] launches per step by mode and local size "
+          f"{ {k: round(v, 2) for k, v in rec['launches_per_step'].items()} }", flush=True)
+    for i, st in enumerate(steps):
+        check(st["evo_iters"] < model.evo_opts["itmax"], f"{tag} step {i + 1}: CG hit its cap")
+        check(st["inv_iters"] < model.inv_opts["itmax"], f"{tag} step {i + 1}: FGMRES hit its cap")
+        check(bool(np.isfinite([st["evo_res"], st["inv_res"]]).all()),
+              f"{tag} step {i + 1}: a residual is not finite")
+    check(len(steps) == BOWL_STEPS and bool(np.isfinite(rec["b_max"])), f"{tag}: max|b| not finite")
+
+
+def phase_assembled(K, card_name):
+    """11d: assembled operators (FEData's matrix plans, ops/sparse's
+    COOMatrix on the card) against K1 "full" and K2 on the slice."""
+    import torch
+
+    import nupgcm_tpu_torch as npg
+    from nupgcm_tpu_torch.fem import assembly as asm
+    from nupgcm_tpu_torch.ops.sparse import coo_from_plan
+    from nupgcm_tpu_torch.tools import kernel_bench as kb
+    from nupgcm_tpu_torch.tools import trace_check
+    from nupgcm_tpu_torch.tools._common import mixing_setup
+
+    model = mixing_setup(npg.generators.bowl3D(0.08, 0.5, nz=9), "cuda", torch.float32)
+    fe, c, o, pr = model.fe, model.const, model.ops, model.params
+    theta = 2.0 / 3.0 * float(model.ts.dt) * pr.a2e2 / pr.mu_rho
+    gu3 = asm.physical_grads(c["invJT"], c["dphi_u"], c["embed"])
+    elems = {
+        "inv": lambda: asm.elem_inversion(c["wq"], c["nu_q"], c["f_q"], c["phi_u"], gu3,
+                                          c["phi_p"], pr.a2e2, model.variable_nu),
+        "b": lambda: asm.elem_mass(c["wq"], c["phi_b"], c["phi_b"]) + theta * (
+            asm.elem_stiffness(c["wq"], c["kh_q"], c["Gb3"], (0, 1))
+            + asm.elem_stiffness(c["wq"], c["kv_q"], c["Gb3"], (2,)))}
+    kernels = {"inv": (model._inv_matrix(o), "saddle_full", fe.n_inv),
+               "b": (model._evo_matrix(o, theta), "scalar", fe.spaces.n_b)}
+    rng = np.random.default_rng(8)
+    for name, plan_of in (("inv", lambda: fe.plan_inv), ("b", lambda: fe.plan_b)):
+        t0 = time.perf_counter()
+        plan = plan_of()
+        plan_s = time.perf_counter() - t0
+        A = coo_from_plan(plan, plan.assemble(elems[name]()))
+        op, counter, n = kernels[name]
+        x = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32, device="cuda")
+        if name == "inv":
+            x_inv = x
+        K.reset_counts()
+        y_k = op.matvec(x)
+        y_a = A.matvec(x)
+        torch.cuda.synchronize()
+        check(A.vals.is_cuda and K.launches[counter] == 1 and not any(K.plain_calls.values()),
+              f"11d {name}: the kernel did not launch, or the COO matrix is off the card")
+        rel = float((y_a - y_k).abs().max() / y_a.abs().max())
+        t_a, t_k = kb.median_ms(lambda: A.matvec(x)), kb.median_ms(lambda: op.matvec(x))
+        print(f"[11d] plan_{name}: {plan.nnz} nonzeros from {plan.slot.size} element entries "
+              f"(host plan {plan_s:.2f} s); COO SpMV on the card against {counter} "
+              f"(K1/K2): max|dy| = {rel:.2e} max|y| (bar {ASSEMBLED_BAR:.0e}); COO {t_a:.4f} "
+              f"ms, kernel {t_k:.4f} ms ({card_name})", flush=True)
+        check(rel < ASSEMBLED_BAR, f"11d {name}: the assembled operator disagrees with the kernel")
+        del A
+    # the profiler late in this long process: traces of K1 full, and
+    # every reading that the acceptance rules let through (the complete
+    # traces by correlation id, device_ms by its event count) held
+    # against the CUDA-graph replay, a reading that needs no profiler
+    # (busy time cannot exceed it, nor fall far below it)
+    k1 = lambda: kernels["inv"][0].matvec(x_inv)
+    tc = trace_check.compare(k1, calls=20, sessions=10)
+    dev = kb.device_ms(k1)
+    print(f"[11d] profiler sessions of 20 K1 full calls late in the process: "
+          f"{trace_check.describe(tc)}; device_ms {dev} ({card_name})", flush=True)
+    lo, hi = (f * tc["graph_ms"] for f in GRAPH_BARS)
+    for ms in tc["device_ms"] + ([] if dev is None else [dev]):
+        check(lo <= ms <= hi, f"11d: a profiler reading of {ms:.4f} ms outside {lo:.4f}-"
+              f"{hi:.4f} ms, {GRAPH_BARS} times the CUDA-graph replay's {tc['graph_ms']:.4f} ms")
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase_precision(ref_state, card_name):
+    """11e: the phase-5 golden under a process that turned TF32 on."""
+    import torch
+
+    from nupgcm_tpu_torch.utils import precision
+
+    saved = precision._read()
+    torch.set_float32_matmul_precision("high")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    tf32 = precision._read()
+    try:
+        check(tf32 == (True, True, "high"), f"11e: TF32 did not switch on: {tf32}")
+        dist = {}
+        for policy in ("float32", None):
+            tag = f"11e {policy}"
+            # matmul_precision=None runs in TF32: no bar, its distance is the finding
+            _, st = golden_run(card_name, tag, hold=policy is not None, matmul_precision=policy)
+            check(precision._read() == tf32, f"{tag}: the model left the process's flags changed")
+            dist[policy] = [float((a.double().cpu() - b).abs().max() / b.abs().max())
+                            for a, b in ((st.u, ref_state[0]), (st.b, ref_state[1]))]
+            print(f"[{tag}] against phase 5's state: max|du| = {dist[policy][0]:.3e} max|u|, "
+                  f"max|db| = {dist[policy][1]:.3e} max|b|"
+                  f"{f' (bar {PRECISION_BAR:.0e})' if policy else ' (TF32 products; no bar)'}",
+                  flush=True)
+        check(max(dist["float32"]) < PRECISION_BAR,
+              "11e: under a TF32 process the model's float32 run left phase 5's states")
+    finally:
+        precision._write(*saved)
+    check(precision._read() == saved, "11e: the script's flags were not restored")
+    print(f"[11e] flags restored to {saved} (matmul TF32, cudnn TF32, float32 matmul "
+          f"precision)", flush=True)
+
+
 def emit_tail(kernels, name_limit, kind, count):
     """The run's last three lines: the card, the kernels, the verdict."""
     print(name_limit)
@@ -1166,12 +1469,9 @@ def main():
     from nupgcm_tpu_torch.ops import build
     from nupgcm_tpu_torch.ops import kernels as K
     from nupgcm_tpu_torch.tools._common import card_name_limit, initial_b, mixing_setup
-    from nupgcm_tpu_torch.tools.northstar import rel_l2
 
     check(pathlib.Path(npg.__file__).resolve().is_relative_to(ROOT),
           f"nupgcm_tpu_torch imported from outside {ROOT}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     name_limit = card_name_limit()
     kind = torch.cuda.get_device_name(0)
     print(f"[device] {name_limit}; torch {torch.__version__}, CUDA {torch.version.cuda}",
@@ -1262,27 +1562,8 @@ def main():
     torch.cuda.empty_cache()
 
     # 5. f32 golden on the card
-    t0 = time.perf_counter()
-    ref = np.load(ROOT / "tests" / "data" / "bowl_mixing_2d.npz")
-    golden = mixing_setup(npg.generators.bowl2D(0.1, 0.5), "cuda", torch.float32,
-                          t_stop=2 * float(ref["t"]))
-    n_steps = round(float(ref["t"]) / golden.ts.dt)
-    st = golden.run(golden.rest_state(), n_info=0, max_steps=n_steps)
-    fe = golden.fe
-    us, bs = fe.spaces.u_space, fe.spaces.b_space
-    ref_b = bs.from_original_order(ref["b"])
-    ref_u = np.stack([us.from_original_order(ref["u"].reshape(-1, 3)[:, k])
-                      for k in range(3)], axis=1)
-    b = st.b.double().cpu().numpy()
-    u = st.u.double().cpu().numpy()
-    eb = rel_l2(fe, b, ref_b, fe.cd_b, fe.tab_b.phi)
-    eu = rel_l2(fe, u, ref_u, fe.cd_u, fe.tab_u.phi)
-    print(f"[golden] bowl2D h=0.1, {st.step} f32 BDF2 steps to t = {float(st.t):.7f} "
-          f"(golden t = {float(ref['t']):.7f}) on the card in {time.perf_counter() - t0:.2f} s: "
-          f"FE rel-L2 b = {eb:.3e}, u = {eu:.3e} (bar 1e-3)", flush=True)
-    check(st.step == n_steps and abs(float(st.t) - float(ref["t"])) < 1e-5,
-          "golden run stopped at another time")
-    check(eb < 1e-3 and eu < 1e-3, "golden run disagrees with the golden file")
+    golden, st = golden_run(name_limit)
+    golden_state = (st.u.double().cpu(), st.b.double().cpu())  # for 11e
     check_kernels(golden, K, "edges 2D")  # 3c on P2-P1 triangles
     phase_edges(golden, K, "edges 2D")
     del golden, st
@@ -1303,16 +1584,23 @@ def main():
     dd_launches = phase_dd(K, name_limit, slice_counts=(
         [int(a["evo_iters"]) for a in stats], [int(a["inv_iters"]) for a in stats]))
 
+    # 11. the 0.87M-DoF bowl, assembled operators, the precision policy
+    bowl_launches = phase_bowl(K, name_limit)
+    phase_assembled(K, name_limit)
+    phase_precision(golden_state, name_limit)
+
     check("jax" not in sys.modules, "JAX was imported")
     kernels = [
         {"name": r["name"], "route": "cuda", "source": SOURCES[r["entry"]],
          "replaces": REPLACES[r["entry"]], "launches": r["launches"],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-         "device_ms": r["device_ms"], "library_device_ms": r["library_device_ms"]}
+         "device_ms": r["device_ms"], "graph_ms": r["graph_ms"],
+         "library_device_ms": r["library_device_ms"]}
         for r in (*results.values(), *probes.values())]
-    for entry, r in zip(kernels, results.values()):  # K1/K2 first: their DD launches
+    for entry, r in zip(kernels, results.values()):  # K1/K2 first: their DD, 11a launches
         entry["dd_launches"] = dd_launches[r["counter"]]
+        entry["bowl_launches"] = bowl_launches[r["counter"]]
     emit_tail(kernels, name_limit, kind, torch.cuda.device_count())
 
 

@@ -3,8 +3,12 @@
 Counterpart of ``nupgcm_tpu.fem.assembly``.  Element tensors are
 batched ``torch.einsum`` contractions of quadrature tables; assembling
 element vectors into a global dof vector is one ``index_add_`` over
-the flattened cell dof table (the operator hot path never assembles a
-sparse matrix: see ``ops/element.py``).
+the flattened cell dof table.  The operator hot path never assembles a
+sparse matrix (see ``ops/element.py``); ``MatrixPlan`` assembles one
+for diagnostics, SciPy export and the reference's assembled-matrix
+regressions: every element-matrix entry maps to a slot of a sorted-COO
+value vector, and assembly is one ``index_add_`` on the tensor's
+device.
 """
 
 from __future__ import annotations
@@ -42,6 +46,60 @@ class VectorPlan:
 
 def build_vector_plan(dofs: np.ndarray, ndof: int) -> VectorPlan:
     return VectorPlan(ndof=ndof, dofs=dofs)
+
+
+class MatrixPlan:
+    """Maps flattened element-matrix entries (c, i, j) to sorted-COO
+    slots.  ``rows``/``cols`` (nnz,) int32 are sorted row-major;
+    ``gather_perm`` (the sort order of the entries) and ``slot_sorted``
+    (the slot of each sorted entry) are the JAX plan's tables, and
+    ``slot`` (the slot of each entry in element order) drives the
+    ``index_add_``."""
+
+    def __init__(self, n_rows, n_cols, rows, cols, gather_perm, slot_sorted, slot):
+        self.n_rows, self.n_cols, self.nnz = n_rows, n_cols, len(rows)
+        self.rows, self.cols = rows, cols
+        self.gather_perm, self.slot_sorted = gather_perm, slot_sorted
+        self.slot = slot
+        self._index = {}  # device -> int64 slot tensor
+
+    def index(self, device) -> torch.Tensor:
+        device = torch.device(device)
+        if device not in self._index:
+            self._index[device] = torch.as_tensor(self.slot, dtype=torch.int64,
+                                                  device=device)
+        return self._index[device]
+
+    def assemble(self, elem_vals: torch.Tensor) -> torch.Tensor:
+        """Element tensors (nc, nl_r, nl_c) -> (nnz,) values on their device."""
+        out = elem_vals.new_zeros(self.nnz)
+        return out.index_add_(0, self.index(elem_vals.device), elem_vals.reshape(-1))
+
+
+def build_matrix_plan(row_dofs: np.ndarray, col_dofs: np.ndarray,
+                      n_rows: int, n_cols: int, pad_nnz_to: int = 1) -> MatrixPlan:
+    """row_dofs (nc, nl_r), col_dofs (nc, nl_c): one entry per (c,i,j).
+
+    ``pad_nnz_to``: pad the nnz count to a multiple (dummy trailing
+    entries at (n_rows-1, n_cols-1) that no element entry adds to), as
+    the JAX plan does to shard its value vector evenly.
+    """
+    nc, nlr = row_dofs.shape
+    nlc = col_dofs.shape[1]
+    r = np.repeat(row_dofs[:, :, None], nlc, axis=2).reshape(-1)
+    c = np.repeat(col_dofs[:, None, :], nlr, axis=1).reshape(-1)
+    key = r.astype(np.int64) * np.int64(n_cols) + c
+    uniq, inv = np.unique(key, return_inverse=True)
+    inv = inv.reshape(-1)
+    gather_perm = np.argsort(inv, kind="stable").astype(np.int32)
+    rows = (uniq // n_cols).astype(np.int32)
+    cols = (uniq % n_cols).astype(np.int32)
+    pad = (-len(uniq)) % pad_nnz_to
+    if pad:
+        rows = np.concatenate([rows, np.full(pad, n_rows - 1, np.int32)])
+        cols = np.concatenate([cols, np.full(pad, n_cols - 1, np.int32)])
+    return MatrixPlan(n_rows, n_cols, rows, cols, gather_perm,
+                      inv[gather_perm].astype(np.int32), inv.astype(np.int32))
 
 
 # ----------------------------------------------------------------------
@@ -126,6 +184,18 @@ def elem_inversion_blocks(wq, nu_q, f_q, phi_u, Gu3, phi_p, a2e2,
     # continuity: q (div u) -> test k, trial (i,a)
     pu = torch.einsum("cq,qk,cqia->ckia", wq, phi_p, Gu3).reshape(nc, nlp, 3 * nlu)
     return uu, up, pu
+
+
+def elem_inversion(wq, nu_q, f_q, phi_u, Gu3, phi_p, a2e2, variable_nu: bool):
+    """Full inversion element matrix over the combined (u, p) space:
+    ``elem_inversion_blocks`` with the zero pressure block, as one
+    (nc, 3 nlu + nlp, 3 nlu + nlp) tensor.  Local combined index:
+    velocity node i, component a -> 3*i + a; pressure node k ->
+    3*nlu + k.  For assembled-matrix diagnostics (``MatrixPlan``); the
+    step keeps the blocks apart."""
+    uu, up, pu = elem_inversion_blocks(wq, nu_q, f_q, phi_u, Gu3, phi_p, a2e2, variable_nu)
+    pp = wq.new_zeros((wq.shape[0], pu.shape[1], up.shape[2]))
+    return torch.cat([torch.cat([uu, up], dim=2), torch.cat([pu, pp], dim=2)], dim=1)
 
 
 def elem_buoyancy_to_velocity(wq, phi_u, phi_b, inv_alpha):

@@ -17,7 +17,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from ..fem.assembly import build_vector_plan
+from ..fem.assembly import build_matrix_plan, build_vector_plan
 from ..fem.geometry import CellGeometry, FacetGeometry, cell_geometry, facet_geometry, grad_embedding
 from ..fem.reference import element_tables, tabulate
 from ..fem.spaces import ScalarSpace, scalar_dirichlet, velocity_dirichlet
@@ -178,6 +178,10 @@ class FEData:
         # node-grouped velocity scatter (one index per 3-vector row)
         self.vec_plan_u_nodes = build_vector_plan(self.cd_u, us.ndof)
 
+        # assembled-sparsity plans (diagnostics / scipy export / tests);
+        # built lazily -- the solver hot path is element-local
+        self._plans = {}
+
         # surface facet group (dGamma)
         facets = mesh.tagged_facets(list(surface_tags))
         fdim = mesh.tdim - 1
@@ -192,6 +196,37 @@ class FEData:
         )
         self.vec_plan_b_surf = build_vector_plan(self.surface.b_facet_dofs, bs.ndof)
         self.vec_plan_u_surf = build_vector_plan(self.surface.u_facet_dofs, 3 * us.ndof)
+
+    def _lazy_plan(self, name, rd, cd, nr, nc):
+        if name not in self._plans:
+            self._plans[name] = build_matrix_plan(rd, cd, nr, nc,
+                                                  pad_nnz_to=self.pad_multiple)
+        return self._plans[name]
+
+    @property
+    def plan_inv(self):
+        return self._lazy_plan("inv", self.cell_dofs_inv, self.cell_dofs_inv,
+                               self.n_inv, self.n_inv)
+
+    @property
+    def plan_B(self):
+        return self._lazy_plan("B", self.cd_u3, self.cd_b, self.n_inv,
+                               self.spaces.n_b)
+
+    @property
+    def plan_b(self):
+        return self._lazy_plan("b", self.cd_b, self.cd_b, self.spaces.n_b,
+                               self.spaces.n_b)
+
+    @property
+    def plan_visc(self):
+        return self._lazy_plan("visc", self.cd_u3, self.cd_u3,
+                               self.spaces.n_u, self.spaces.n_u)
+
+    @property
+    def plan_Mp(self):
+        return self._lazy_plan("Mp", self.cd_p, self.cd_p, self.spaces.n_p,
+                               self.spaces.n_p)
 
     def summary(self) -> str:
         s = self.spaces

@@ -52,6 +52,7 @@ from ..solvers.gmres import gmres
 from ..solvers.preconditioners import (AggregateCoarseCorrection,
                                        BlockStokesPrecond, CoarseCorrection,
                                        SaddleCoarseCorrection, power_lmax)
+from ..utils.precision import precision_ctx, scoped_method
 from .config import Forcings, Parameters, SurfaceFluxBC
 from .fedata import FEData
 from .timesteppers import BDF2
@@ -187,6 +188,15 @@ class PGModel:
     CUDA device) and runs every operator application through them;
     ``device="cpu"`` runs their plain PyTorch versions.  ``dtype`` is
     float32 (the production type) or float64.
+
+    ``matmul_precision="float32"`` (the default) holds every float32
+    product of the build and of the entry points (``step``,
+    ``multi_step``, ``run``, ``invert``, ``solve_inversion``,
+    ``refresh_precond``, ``retune``) at full float32, whatever TF32
+    setting the caller's process holds, and restores that setting on
+    return (``utils/precision.py``; the JAX model scopes its traces so,
+    ``nupgcm_tpu/models/model.py:341-357``).  ``None`` leaves the
+    process's setting in force.
     """
 
     def __init__(
@@ -216,6 +226,7 @@ class PGModel:
         saddle_coarse_inner: Optional[int] = None,
         saddle_coarse_l2: Optional[bool] = None,
         assembly_chunk: int = 8192,
+        matmul_precision: Optional[str] = "float32",
     ):
         if dtype not in (torch.float32, torch.float64):
             raise ValueError(f"dtype must be torch.float32 or torch.float64, got {dtype}")
@@ -292,9 +303,18 @@ class PGModel:
                 inner_iters_u = 2 if self.saddle_coarse else 4 if self.twogrid else 10
         self.inner_iters = (inner_iters_u, inner_iters_p)
         self.assembly_chunk = assembly_chunk
+        self.matmul_precision = matmul_precision
 
-        self._build_constants()
-        self._build_operators()
+        # host seconds of the build's parts (the device work they queue
+        # may still run): constants, operators, and within operators the
+        # aggregate level's host assembly and dense inverse
+        self.build_seconds = {}
+        with precision_ctx(matmul_precision):
+            t0 = time.perf_counter()
+            self._build_constants()
+            t1 = time.perf_counter()
+            self._build_operators()
+            self.build_seconds.update(constants=t1 - t0, operators=time.perf_counter() - t1)
 
     @property
     def preconditioner_branch(self) -> str:
@@ -604,6 +624,7 @@ class PGModel:
         (host f64, element-level bincount scatter -- the global coarse
         matrix is never formed), and the result is inverted dense once
         and downcast to the working dtype."""
+        t0 = time.perf_counter()
         c = self.const
         fe = self.fe
         nv = fe.spaces.p_space.ndof
@@ -646,6 +667,7 @@ class PGModel:
         A2 += float(ops["sc_sigma"]) * np.outer(wc, wc)
         ops["sc2_inv"] = self._T(np.linalg.inv(A2))
         ops["sc2_agg"] = torch.as_tensor(agg, dtype=torch.int64, device=self.device)
+        self.build_seconds["aggregate_level"] = time.perf_counter() - t0
 
     def _saddle_coarse_operator(self, ops) -> SaddleOperator:
         fe, c = self.fe, self.const
@@ -995,6 +1017,7 @@ class PGModel:
         src/model.jl:302-317)."""
         return self._solve_saddle(ops, self._b_matvec(ops, b_full) + ops["s"], x0)
 
+    @scoped_method
     def solve_inversion(self, y_full, x0=None):
         """Solve the saddle system A x = y for an arbitrary full-length
         rhs over the combined (u, p) dof vector (the
@@ -1083,6 +1106,7 @@ class PGModel:
         c, pr = self.const, self.params
         return pr.alpha * (pr.N2 + torch.einsum("cqi,ci->cq", c["Gb3"][..., 2], b[c["cd_b"]]))
 
+    @scoped_method
     def refresh_precond(self, ops, state: State):
         """Preconditioner refresh from the CURRENT eddy viscosity;
         returns a new ops dict (``ops`` itself when the eddy closure is
@@ -1142,6 +1166,7 @@ class PGModel:
     # ------------------------------------------------------------------
     # host-level API
     # ------------------------------------------------------------------
+    @scoped_method
     def step(self, state: State):
         """One timestep: (new_state, aux) with solver iteration counts
         and the progress-line diagnostics (Python numbers).  With the
@@ -1174,6 +1199,7 @@ class PGModel:
                    inv_iters=inv_stats.iterations, inv_res=inv_stats.residual)
         return new_state, aux
 
+    @scoped_method
     def multi_step(self, state: State, n: int):
         """``n`` timesteps: (state, auxs), ``auxs[key]`` a length-n numpy
         array of the per-step aux values, as the JAX package's
@@ -1188,6 +1214,7 @@ class PGModel:
                 auxs[k].append(aux[k])
         return state, {k: np.asarray(v) for k, v in auxs.items()}
 
+    @scoped_method
     def retune(
         self,
         saddle_coarse_inner: Optional[int] = None,
@@ -1250,13 +1277,18 @@ class PGModel:
         return State(u=state.u, p=state.p, b=b, u_prev=state.u_prev, b_prev=b,
                      t=state.t, dt=state.dt, step=state.step)
 
-    def invert(self, state: State) -> State:
-        """Diagnose the flow (u, p) from the state's buoyancy."""
+    @scoped_method
+    def invert(self, state: State, return_stats: bool = False):
+        """Diagnose the flow (u, p) from the state's buoyancy, starting
+        FGMRES from the state's flow.  With ``return_stats``, (state,
+        FGMRES stats) as the JAX ``invert_jit``'s aux carries them."""
         x0 = torch.cat([state.u.reshape(-1), state.p])
-        u, p, _ = self._invert_pure(self.ops, state.b, x0)
-        return State(u=u, p=p, b=state.b, u_prev=state.u_prev, b_prev=state.b_prev,
-                     t=state.t, dt=state.dt, step=state.step)
+        u, p, stats = self._invert_pure(self.ops, state.b, x0)
+        out = State(u=u, p=p, b=state.b, u_prev=state.u_prev, b_prev=state.b_prev,
+                    t=state.t, dt=state.dt, step=state.step)
+        return (out, stats) if return_stats else out
 
+    @scoped_method
     def run(self, state: State, n_info: int = 10, n_save: Optional[int] = None,
             save_callback: Optional[Callable] = None, n_plot: Optional[int] = None,
             plot_callback: Optional[Callable] = None, max_steps: Optional[int] = None,

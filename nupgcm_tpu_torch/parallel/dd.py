@@ -68,6 +68,7 @@ from ..ops.element import ElementOperator, SaddleOperator
 from ..solvers.cg import cg
 from ..solvers.gmres import gmres
 from ..solvers.preconditioners import AggregateCoarseCorrection, BlockStokesPrecond
+from ..utils.precision import precision_ctx, scoped_method
 from .comm import ShardGroup
 
 VEC_KEYS = ("u", "p", "b", "u_prev", "b_prev")
@@ -132,9 +133,17 @@ class DDModel:
         self.L = self.group.L
         self.own = np.array([self.group.index(j) for j in range(self.L)])
         self._op_cache = {}
-        self._build_partition()
-        self._build_tables()
-        self._build_blocks()
+        with precision_ctx(self.matmul_precision):
+            self._build_partition()
+            self._build_tables()
+            self._build_blocks()
+
+    @property
+    def matmul_precision(self):
+        """The wrapped model's policy (``PGModel(matmul_precision=...)``),
+        entered around the build and every entry point, as the JAX
+        ``DDModel`` does (``nupgcm_tpu/parallel/dd.py:110``)."""
+        return self.model.matmul_precision
 
     # ------------------------------------------------------------------
     # host setup
@@ -539,6 +548,7 @@ class DDModel:
     # ------------------------------------------------------------------
     # the step
     # ------------------------------------------------------------------
+    @scoped_method
     def step(self, sv: dict):
         """One timestep of the sharded state: (new dd state, aux), aux
         holding the solver counts and the progress-line diagnostics as
@@ -806,6 +816,7 @@ class DDModel:
         return correct
 
     # ------------------------------------------------------------------
+    @scoped_method
     def multi_step(self, dd: dict, n: int):
         """``n`` steps: (dd, auxs) with ``auxs[key]`` a length-n numpy
         array (a Python loop in place of the JAX ``lax.scan``)."""
@@ -816,6 +827,7 @@ class DDModel:
                 auxs[k].append(aux[k])
         return dd, {k: np.asarray(v) for k, v in auxs.items()}
 
+    @scoped_method
     def refresh_precond(self, dd: dict) -> dict:
         """DD counterpart of ``PGModel.refresh_precond``: rebuild every
         nu-dependent preconditioner table from the CURRENT eddy viscosity
@@ -849,6 +861,7 @@ class DDModel:
             out[k] = T(self._reorder_cells(ops[k]))
         return out
 
+    @scoped_method
     def run(self, state, max_steps: int = None, n_info: int = 10, n_save=None,
             save_callback=None, steps_per_block: int = 1, n_precond_refresh: int = None,
             log=print) -> State:

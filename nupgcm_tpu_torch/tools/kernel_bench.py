@@ -16,16 +16,23 @@ library yardstick, never used by the port):
               runs on the card), kept only if the trace holds every
               call's device events (counted from traces of one and two
               calls), else not measured (None)
+  graph_ms    device time per call without the profiler: CUDA events
+              around a CUDA-graph replay of 20 calls, read wherever the
+              tree has prepared launches; it also counts the replay's
+              gaps between kernels, so it reads at or above device_ms
   host_us     host time per call: time.perf_counter around 1,000 calls,
               read before the synchronise
   bound_ms    the larger of the bytes (each input read once, each output
               written once) over 3.35 TB/s and the multiply-adds over
-              67 TFLOP/s (H100 SXM f32 without tensor cores)
+              67 TFLOP/s (H100 SXM f32 without tensor cores); the CSR
+              call's own bound (library_bound_ms) counts its matrix's
+              values and indices in place of the element tensors
 
 the slice's split of K1 "full" into streaming (K3) and the rest
 (pinned K1) from ``tools/profile_matvec``, the slice's steps per second
 (three windows of 10 BDF2 steps after set_b + invert) with its
-device-busy share (5 steps under the profiler), and the production
+device-busy share (5 steps under the profiler, from a trace that lost
+no device event of the steps), and the production
 configuration's seconds per step (h = 0.04, three steps).
 
 The same file measures an older tree of the repository, so that two
@@ -228,14 +235,16 @@ def _trace(fn, k):
     return summ["busy_us"], sum(c for c, _ in summ["by_name"].values())
 
 
-def device_ms(fn, n=20, tries=3):
-    """Device busy ms per call over a profiler trace of ``n`` calls.  The
-    profiler sometimes drops device events, and a trace that missed
-    calls reads too little busy time, so a trace is kept only if it
-    holds the events that traces of one and two calls (E1, E2: the most
-    of ``tries`` each) say ``n`` calls make, E1 + (n - 1)(E2 - E1); E1
-    may hold events a trace makes once, whatever its length.  None if
-    no try held them."""
+def device_ms(fn, n=20, tries=5):
+    """Device busy ms per call over a profiler trace of ``n`` calls.  A
+    trace that missed calls would read too little busy time, so a trace
+    is kept only if it holds the events that traces of one and two
+    calls (E1, E2: the most of ``tries`` each) say ``n`` calls make,
+    E1 + (n - 1)(E2 - E1); E1 may hold events a trace makes once,
+    whatever its length.  None if no try held them.  Late in a long
+    process a profiler session loses device events from the start of
+    its window (a few, or all of them) in some sessions and not in
+    others: five tries of each kind leave few cases unmeasured."""
     e1, e2 = (max(_trace(fn, k)[1] for _ in range(tries)) for k in (1, 2))
     if e2 <= e1:
         return None
@@ -259,6 +268,9 @@ def measure_case(model, K, case, log=print, tag="kernels"):
     lib_err = float((lib()[:, 0] - y0).abs().max())
     turns = [median_ms(f) for f in (kfn, lib, lib, kfn)]
     dev = [device_ms(f) for f in (kfn, lib, lib, kfn)]
+    # an older tree's one-off wrappers build tables on the host per call,
+    # which a graph capture refuses: only prepared launches are replayed
+    g_ms = graph_ms(kfn) if hasattr(K, "saddle_launch") else None
     hus = [host_us(f) for f in (kfn, lib, lib, kfn)]
     def mean(v, i, j):  # of the two turns that measured something
         got = [t for t in (v[i], v[j]) if t is not None]
@@ -269,21 +281,27 @@ def measure_case(model, K, case, log=print, tag="kernels"):
     out_len = 3 * case["n_nodes"] if case["mode"] == "up" else case["n_x"]
     b_ms, b_by = bound(nbytes(*floats, *ints, x) + 4 * out_len,
                        2 * sum(t.numel() for t in floats))
+    # the CSR product reads the assembled matrix, not the element tensors:
+    # its own bound (a P1 operator's matrix is a third of its elements' bytes)
+    lib_b_ms, _ = bound(nbytes(csr.values(), csr.col_indices(), csr.crow_indices(), x)
+                        + 4 * out_len, 2 * csr.values().numel())
     rec = dict(entry=case["entry"], mode=case["mode"], label=case["label"],
                shape=list(floats[0].shape[1:]), nc=int(floats[0].shape[0]),
                max_abs_err=err, rel_err=err / scale,
                lib_rel_err=lib_err / scale, ms=mean(turns, 0, 3), library_ms=mean(turns, 1, 2),
-               device_ms=mean(dev, 0, 3), library_device_ms=mean(dev, 1, 2),
+               device_ms=mean(dev, 0, 3), graph_ms=g_ms, library_device_ms=mean(dev, 1, 2),
                host_us=mean(hus, 0, 3), library_host_us=mean(hus, 1, 2),
                plain_ms=median_ms(pfn), bound_ms=b_ms, bound_by=b_by,
-               nnz=int(csr.values().numel()))
+               library_bound_ms=lib_b_ms, nnz=int(csr.values().numel()))
     name = rec["entry"] + ("" if rec["mode"] is None else f"[{rec['mode']}]")
     fmt = lambda v: "n/m" if v is None else f"{v:.4f}"
     log(f"[{tag}] {name:24s} {rec['label']:34s} f32: kernel {fmt(rec['ms'])} ms "
-        f"(device {fmt(rec['device_ms'])}, host {rec['host_us']:.1f} us), CSR "
+        f"(device {fmt(rec['device_ms'])}, graph replay {fmt(g_ms)}, host "
+        f"{rec['host_us']:.1f} us), CSR "
         f"{fmt(rec['library_ms'])} ms (device {fmt(rec['library_device_ms'])}, host "
-        f"{rec['library_host_us']:.1f} us), plain {rec['plain_ms']:.4f} ms, bound "
-        f"{b_ms:.4f} ms ({b_by}); err {rec['rel_err']:.1e} max|y|")
+        f"{rec['library_host_us']:.1f} us; its bound {lib_b_ms:.4f} ms), plain "
+        f"{rec['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); err {rec['rel_err']:.1e} "
+        f"max|y|")
     del csr
     return rec
 
@@ -302,22 +320,72 @@ def step_rate(model, state, n=10):
     return n / (time.perf_counter() - t0), state
 
 
-def busy_share(model, state, n=5):
-    """Device-busy share of ``n`` profiled steps, and their wall time."""
+def graph_ms(fn, calls=20, reps=10):
+    """Device ms per call that needs no profiler: CUDA events around a
+    CUDA-graph replay of ``calls`` calls (no host gaps between them, but
+    the replay's own gap between kernels), the median of ``reps``
+    replays."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    return statistics.median(times)
+
+
+PAD_LAUNCHES = 64  # spin kernels that open a busy-share trace (busy_share)
+
+
+def busy_share(model, state, n=5, tries=5):
+    """Device-busy share of ``n`` profiled steps from ``state``, their
+    wall time, the state after them and, for each try, the launches of
+    the steps and of the pad whose device events the trace lost
+    (``utils.timing.lost_events``).  A session can lose the device
+    events of its first launches (up to 23 seen on an H100, late in a
+    long process), so each trace opens with PAD_LAUNCHES spin kernels,
+    left out of the busy time; a trace counts only if every launch of
+    the steps found its device event.  The same steps are traced again,
+    up to ``tries`` times, and the share is None if every trace lost
+    some."""
     import tempfile
 
-    from nupgcm_tpu_torch.utils.timing import device_trace, trace_summary
+    from nupgcm_tpu_torch.utils.timing import device_trace, lost_events, trace_summary
 
-    with tempfile.TemporaryDirectory() as d:
-        with device_trace(d) as path:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(n):
-                state, _ = model.step(state)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        summ = trace_summary(path)
-    return summ["busy_us"] / 1e6 / wall, wall, state
+    lost = []
+    for _ in range(tries):
+        st = state
+        with tempfile.TemporaryDirectory() as d:
+            with device_trace(d) as path:
+                for _ in range(PAD_LAUNCHES):
+                    torch.cuda._sleep(1)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    st, _ = model.step(st)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            pos = lost_events(path)["lost"]
+            steps_lost = sum(1 for i in pos if i >= PAD_LAUNCHES)
+            lost.append((steps_lost, len(pos) - steps_lost))
+            summ = trace_summary(path)
+        if not steps_lost:
+            pad_us = sum(us for k, (_, us) in summ["by_name"].items() if "spin_kernel" in k)
+            return (summ["busy_us"] - pad_us) / 1e6 / wall, wall, st, lost
+    return None, wall, st, lost
 
 
 STEPS_8B = 3
@@ -344,10 +412,13 @@ def run(what=("slice", "8b"), log=print) -> dict:
         for _ in range(3):
             r, state = step_rate(model, state)
             rates.append(r)
-        share, wall, state = busy_share(model, state)
+        share, wall, state, lost = busy_share(model, state)
         out.update(slice_steps_per_s=rates, slice_busy_share=share, slice_profiled_wall_s=wall)
+        busy = "not measured" if share is None else f"{100 * share:.1f}%"
         log(f"[slice] steps/s over 3 windows of 10 steps {[round(r, 3) for r in rates]}; "
-            f"device busy {100 * share:.1f}% of 5 profiled steps ({out['card']})")
+            f"device busy {busy} of 5 profiled steps (launches lost per trace, of the steps "
+            f"and of the pad: {lost}) "
+            f"({out['card']})")
         del model, state
         torch.cuda.empty_cache()
     if "8b" in what:

@@ -14,8 +14,13 @@ The reference mesh and golden are not shipped with the repository.
 The run reads the reference's ``meshes/bowl3D_1.000000e-01_5.000000e-01.msh``
 with ``read_msh`` when the ``NUPGCM_REF_MESH`` environment variable
 names that file and it is present; otherwise it takes the generated
-``bowl3D(0.1, 0.5, nz=7)`` (the JAX tool's own fallback).  It skips the
-golden prefix check.
+``bowl3D(0.1, 0.5, nz=7)`` (the JAX tool's own fallback).  When
+``NUPGCM_REF_GOLDEN`` also names a file that is present (the reference's
+``test/data/bowl_mixing_3D.jld2``), the mixing run holds its 50-step
+prefix against it through the Gridap dof maps (``io/gridap.py``) and
+records ``prefix50_rel_l2_u``, ``prefix50_rel_l2_b`` and
+``prefix50_pass_1e3``, as the JAX tool does; otherwise it skips that
+check.  Reading the golden needs h5py.
 
 Usage::
 
@@ -39,6 +44,7 @@ import torch
 
 
 REF_MESH = os.environ.get("NUPGCM_REF_MESH")
+REF_GOLDEN = os.environ.get("NUPGCM_REF_GOLDEN")
 
 
 def reference_mesh():
@@ -135,6 +141,23 @@ def rel_l2(fe, vals, ref, cd, phi):
     return norm2(vals - ref) / norm2(ref)
 
 
+def prefix_check(model, state, mesh_path: str, golden_path: str) -> dict:
+    """The state against a reference golden in Gridap free-dof order
+    on the mesh of ``mesh_path``: FE-integral relative L2 of u and b
+    and whether both pass the reference's 1e-3 bar
+    (test/bowl_mixing_tests.jl:101-103)."""
+    from nupgcm_tpu_torch.io import gridap as gi
+
+    fe = model.fe
+    maps = gi.gridap_maps(mesh_path, fe.spaces)
+    ref = gi.state_from_reference(model, golden_path, maps)
+    host = lambda t: t.double().cpu().numpy()
+    eu = rel_l2(fe, host(state.u), host(ref.u), fe.cd_u, fe.tab_u.phi)
+    eb = rel_l2(fe, host(state.b), host(ref.b), fe.cd_b, fe.tab_b.phi)
+    return {"prefix50_rel_l2_u": eu, "prefix50_rel_l2_b": eb,
+            "prefix50_pass_1e3": bool(eu < 1e-3 and eb < 1e-3)}
+
+
 def canonical(fe, state) -> dict:
     """u and b of ``state`` in mesh-canonical dof order (host f64)."""
     us, bs = fe.spaces.u_space, fe.spaces.b_space
@@ -172,13 +195,20 @@ def main():
              "steps": args.steps}
 
     state = model.rest_state()
-    # ---- 50-step prefix (the reference golden is not shipped) --------
+    # ---- 50-step prefix vs the reference golden ------------------------
     t0 = time.time()
     state = model.run(state, n_info=0, max_steps=50,
                       n_precond_refresh=25 if full else None)
     torch.cuda.synchronize()
     print(f"50-step prefix: {time.time() - t0:.1f}s", flush=True)
-    print("reference golden unavailable; prefix check skipped", flush=True)
+    if (not full and REF_GOLDEN and os.path.exists(REF_GOLDEN) and REF_MESH
+            and os.path.exists(REF_MESH)):
+        stats.update(prefix_check(model, state, REF_MESH, REF_GOLDEN))
+        print(f"prefix vs reference golden: rel-L2 u={stats['prefix50_rel_l2_u']:.3e} "
+              f"b={stats['prefix50_rel_l2_b']:.3e} "
+              f"({'PASS' if stats['prefix50_pass_1e3'] else 'FAIL'})", flush=True)
+    else:
+        print("reference golden unavailable; prefix check skipped", flush=True)
 
     # ---- march to --steps with periodic checkpoints --------------------
     # the eddy closure's operators depend on the history of b (rebuilt

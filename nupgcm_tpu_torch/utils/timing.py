@@ -98,7 +98,10 @@ def device_trace(logdir: str):
     """Profile the block with ``torch.profiler`` (host, plus CUDA where a
     device exists) and write a gzipped Chrome trace to
     ``logdir/trace.json.gz`` on exit; yields that path.  View it in
-    Perfetto or chrome://tracing, or read it with ``trace_summary``."""
+    Perfetto or chrome://tracing, or read it with ``trace_summary``.
+    A session can lose device events from the start of its window
+    (``lost_events`` finds them): a reader that needs every event
+    checks the trace and traces again."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]
@@ -142,3 +145,31 @@ def trace_summary(path: str) -> dict:
             end = b
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
     return {"busy_us": busy, "by_name": {k: (n, us) for k, (n, us) in ranked}}
+
+
+LAUNCH_NAMES = ("Launch", "Memset", "Memcpy")  # host runtime calls that make device work
+
+
+def lost_events(path: str) -> dict:
+    """Host launches of a Chrome trace matched to their device events by
+    correlation id: ``events`` (device events), ``launches`` (kernel
+    launches, memsets and memcpys on the host), ``lost`` (positions, in
+    time order, of the launches whose device event the trace lacks),
+    ``orphans`` (device events of no launch in the trace) and
+    ``lag_us`` (the least time from a launch call's start to its device
+    event's start; None without a match)."""
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "rt") as f:
+        events = json.load(f)["traceEvents"]
+    corr = lambda e: e.get("args", {}).get("correlation")
+    device = [e for e in events if e.get("ph") == "X" and e.get("cat") in DEVICE_CATEGORIES]
+    dev = {corr(e): e for e in device}
+    launches = sorted((e for e in events if e.get("ph") == "X" and e.get("cat") == "cuda_runtime"
+                       and any(k in e.get("name", "") for k in LAUNCH_NAMES)),
+                      key=lambda e: e["ts"])
+    own = {corr(e) for e in launches}
+    lags = [float(dev[corr(e)]["ts"]) - float(e["ts"]) for e in launches if corr(e) in dev]
+    return {"events": len(device), "launches": len(launches),
+            "lost": [i for i, e in enumerate(launches) if corr(e) not in dev],
+            "orphans": sum(1 for e in device if corr(e) not in own),
+            "lag_us": min(lags) if lags else None}

@@ -24,6 +24,12 @@ def test_port_imports_without_jax():
             "                                       convergence, sphere)\n"
             "from nupgcm_tpu_torch.solvers.preconditioners import (CoarseCorrection,\n"
             "                                                      const_diag, jacobi)\n"
+            "from nupgcm_tpu_torch.fem.assembly import MatrixPlan, build_matrix_plan\n"
+            "from nupgcm_tpu_torch.ops.sparse import COOMatrix, ELLMatrix, coo_from_plan\n"
+            "from nupgcm_tpu_torch.utils import precision\n"
+            "from nupgcm_tpu_torch.io import gridap, jld2\n"
+            "from nupgcm_tpu_torch.tools import kernel_bench, measure_l2, trace_check\n"
+            "assert 'h5py' not in sys.modules\n"
             "assert 'matplotlib' not in sys.modules\n"
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
             "assert 'nupgcm_tpu' not in sys.modules\n")

@@ -256,7 +256,7 @@ def test_chip_smoke_fails_without_cuda_or_without_the_repo(tmp_path):
 
 @pytest.mark.parametrize("n_traces, expect", [
     ([(150.0, 30), (200.0, 41)], 0.01),        # the first trace missed calls
-    ([(150.0, 30), (140.0, 28), (10.0, 2)], None),  # every try missed calls
+    ([(150.0, 30), (140.0, 28), (10.0, 2), (150.0, 30), (140.0, 28)], None),  # every try did
 ])
 def test_device_ms_keeps_no_trace_that_missed_calls(monkeypatch, n_traces, expect):
     """kernel_bench.device_ms keeps a trace of 20 calls only if it holds
@@ -265,7 +265,7 @@ def test_device_ms_keeps_no_trace_that_missed_calls(monkeypatch, n_traces, expec
     on a device time below its bound, and takes None as not measured."""
     from nupgcm_tpu_torch.tools import kernel_bench as kb
 
-    traces = {1: iter([(10.0, 3)] * 3), 2: iter([(20.0, 5)] * 3), 20: iter(n_traces)}
+    traces = {1: iter([(10.0, 3)] * 5), 2: iter([(20.0, 5)] * 5), 20: iter(n_traces)}
     monkeypatch.setattr(kb, "_trace", lambda fn, k: next(traces[k]))
     got = kb.device_ms(lambda: None)
     assert got == pytest.approx(expect) if expect is not None else got is None
