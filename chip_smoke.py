@@ -145,7 +145,8 @@ Phases (any failed check raises, and the script exits non-zero):
      11a. tools/measure_l2's mode "base" on bowl3D(0.033, 0.5, nz=12)
           (36,096 vertices, 198,864 tets, 0.87M inversion DoF) in f32
           with the solver defaults (the aggregate level on): build
-          (mesh, FEData, operators and the host aggregate level apart),
+          (mesh, FEData, operators and the aggregate level apart, the
+          host aggregation of its vertices within it),
           invert twice, two blocks of 5 steps from the set_b state, the
           second timed.  Vertices, tets, DoF, aggregates, build split,
           invert s and FGMRES count, every step's CG and FGMRES counts
@@ -185,6 +186,29 @@ Phases (any failed check raises, and the script exits non-zero):
           The flags the model found are in force after each run, and the
           script's own are restored at the end.
 
+  12. the coarse saddle matrices, assembled and inverted in float64 on
+     the card (``PGModel._saddle_coarse_matrix`` / ``_aggregate_matrix``,
+     ``_coarse_inverse``):
+     12a. 8a's dense coarse level (9,340^2, the f64 model, run at the
+          end of 8a);
+     12b. 11a's aggregate level (12,048^2, run after 11c).
+     Each matrix is built and inverted twice in the same process: the
+     seconds of each, ||A X - I||_inf on the card, and the two builds'
+     differences (the scatter's atomics add in another order each
+     time).  Bars, from the backward stability of LU with partial
+     pivoting (the residual and the forward error of a computed inverse
+     are of order n u kappa, u = 2^-53, kappa = ||A||_inf ||X||_inf):
+     ||A X - I||_inf <= n u ||A||_inf ||X||_inf; the second build's
+     matrix within 1e-12 of max|A| of the first, and its inverse within
+     n u kappa of max|X|; for 12a also the largest difference between the
+     card's inverse and np.linalg.inv of the same matrix on the host,
+     within n u kappa of max|X|.  On an NVIDIA H100 80GB HBM3 (700 W)
+     the residuals read 2e-5 to 5e-5 of their bar, the host difference
+     2e-7 of its, and the rebuilt matrices differed by 3e-17 to 8e-17 of
+     max|A|: the bars leave room for other matrices' growth factors,
+     while an inverse factorised in float32 (residual about u_f32 kappa)
+     would exceed them some 5e4 times.
+
 Every K1/K2 and probe case of phases 3, 3b, 8b and 11c reads two
 device times: the profiler's busy time (kernel_bench.device_ms; None
 when no trace held every call, which happens late in a long process)
@@ -208,7 +232,8 @@ and 8 print the launches per mode and local size
 (kernels.shape_launches).
 
 Phases run in the order 1, 2, 4a (build the slice), 3, 3c, 3b, 4b
-(step it), 6, 7, 5 (with the 2D edge cases), 8a, 8b, 9a-9d, 10a-10c, 11a-11e.
+(step it), 6, 7, 5 (with the 2D edge cases), 8a with 12a, 8b, 9a-9d, 10a-10c,
+11a-11c, 12b, 11d-11e.
 The last three lines are the card's name and power limit, a JSON object
 {"kernels": [...]} (K1/K2 entries also carry "dd_launches", their
 launches in 10b's DD steps, and "bowl_launches", in 11a's run), and
@@ -272,6 +297,8 @@ GRAPH_BARS = (0.85, 1.1)
 # order stop their solves at rtol 1e-6 apart (5.6e-7 to 7.5e-7 on an
 # NVIDIA H100 80GB HBM3); TF32 products move the state by 4e-3 to 5e-3
 PRECISION_BAR = 1e-5
+# 12: a coarse matrix's second build, against the first, relative to max|A|
+COARSE_REBUILD_BAR = 1e-12
 
 
 def check(cond, msg):
@@ -672,7 +699,7 @@ def northstar_run(K, card_name, dtype):
     print(f"[{tag}] northstar full, {mesh_src}: {fe.mesh.n_vertices} vertices, "
           f"{fe.mesh.n_cells} cells, {fe.n_inv} inversion DoF; preconditioner "
           f"{model.preconditioner_branch}, inner_method {model.inner_method}; build "
-          f"{build_s:.2f} s ({card_name})", flush=True)
+          f"{build_s:.2f} s ({build_parts(model)}) ({card_name})", flush=True)
     check((fe.mesh.n_cells, fe.mesh.n_vertices) == (11928, 2335), f"{tag}: not the tool's mesh")
 
     # the eddy closure's operators depend on the history of b, so the
@@ -740,6 +767,7 @@ def northstar_run(K, card_name, dtype):
           f"(bar {RESUME_BAR:.0e})", flush=True)
     check(st_r.step == 30 and du <= RESUME_BAR and db <= RESUME_BAR,
           f"{tag}: the resumed run disagrees with the straight run")
+    phase_coarse(model, "12a", card_name, host=True)
 
 
 def phase_production(K, card_name):
@@ -762,7 +790,8 @@ def phase_production(K, card_name):
           f"{mesh.n_cells} cells, {fe.n_inv} inversion DoF, {fe.spaces.n_b} P{fe.spaces.b_order} "
           f"buoyancy DoF; preconditioner {model.preconditioner_branch}, inner_method "
           f"{model.inner_method}, saddle_coarse_inner {model.saddle_coarse_inner}; build "
-          f"{build_s:.2f} s, peak device memory {build_peak / 2**20:.1f} MiB ({card_name})",
+          f"{build_s:.2f} s ({build_parts(model)}), peak device memory "
+          f"{build_peak / 2**20:.1f} MiB ({card_name})",
           flush=True)
     check((mesh.n_cells, mesh.n_vertices) == (41520, 8346), "8b: not the h = 0.04 mesh")
     state = model.rest_state()
@@ -819,7 +848,9 @@ def phase_sphere(K, card_name):
     print(f"[9a] sphere_mesh(8) via write_msh/read_msh ({path.relative_to(ROOT)}): "
           f"{mesh.n_vertices} vertices, {mesh.n_cells} cells, {fe.n_inv} inversion DoF; "
           f"preconditioner {model.preconditioner_branch}, inner_method {model.inner_method}; "
-          f"f64, atol 0; build {build_s:.2f} s ({card_name})", flush=True)
+          f"f64, atol 0; build {build_s:.2f} s (mesh and its .msh round trip included; "
+          f"{build_parts(model)}), peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB ({card_name})", flush=True)
     check(fe.n_inv == 112724, f"9a: {fe.n_inv} inversion DoF, not 112,724")
     check(model.preconditioner_branch == "iterative saddle coarse + L2 aggregate level",
           "9a: not the iterative saddle coarse + aggregate branch")
@@ -1291,7 +1322,8 @@ def phase_bowl(K, card_name):
           f"preconditioner {info['preconditioner']}, inner_method {model.inner_method}, "
           f"saddle_coarse_inner {model.saddle_coarse_inner}; build {info['build_s']:.2f} s = "
           f"mesh {info['mesh_s']:.2f} + Spaces/FEData {info['fedata_s']:.2f} + operators "
-          f"{info['operators_s']:.2f} + host aggregate level {info['aggregate_s']:.2f}; peak "
+          f"{info['operators_s']:.2f} + aggregate level {info['aggregate_s']:.2f} (of it the "
+          f"host aggregation {info['aggregation_s']:.2f}); peak "
           f"{info['build_peak_mib']:.1f} MiB ({card_name})", flush=True)
     check(info["preconditioner"] == "iterative saddle coarse + L2 aggregate level",
           "11a: not the aggregate branch")
@@ -1324,6 +1356,7 @@ def phase_bowl(K, card_name):
     print(f"[11a] device busy over 3 steps after set_b + invert: {busy}; launches lost per "
           f"trace, of the steps and of the pad: {lost} ({card_name})", flush=True)
     phase_kernels(model, K, card_name, tag="11c kernels")
+    phase_coarse(model, "12b", card_name)
     del model
     torch.cuda.empty_cache()
     return launches
@@ -1449,6 +1482,72 @@ def phase_precision(ref_state, card_name):
     check(precision._read() == saved, "11e: the script's flags were not restored")
     print(f"[11e] flags restored to {saved} (matmul TF32, cudnn TF32, float32 matmul "
           f"precision)", flush=True)
+
+
+def build_parts(model) -> str:
+    """A model's ``build_seconds`` as "constants c + operators o s",
+    with the coarse level's float64 assembly and inverse within the
+    operators (and the host aggregation of the vertices within that)."""
+    bs = model.build_seconds
+    parts = [f"{k.replace('_', ' ')} {bs[k]:.3f}" for k in
+             ("saddle_coarse", "aggregate_level", "aggregation") if k in bs]
+    return (f"constants {bs['constants']:.3f} + operators {bs['operators']:.3f} s"
+            + (f", within them {', '.join(parts)} s" if parts else ""))
+
+
+def phase_coarse(model, tag, card_name, host=False):
+    """12: the model's coarse saddle matrix (its dense coarse level, or
+    its aggregate level) built and inverted twice in float64 on the
+    card, at the build-time viscosity.  ||A X - I||_inf against n u
+    ||A||_inf ||X||_inf, the two builds' differences, and with ``host``
+    the card's inverse against np.linalg.inv of the same matrix."""
+    import torch
+
+    dense = model.saddle_coarse_dense
+    what = "dense coarse level" if dense else "aggregate level"
+    build = model._saddle_coarse_matrix if dense else lambda: model._aggregate_matrix(model.ops)
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        A = build()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        X = model._coarse_inverse(A)
+        torch.cuda.synchronize()
+        runs.append((A, X, t1 - t0, time.perf_counter() - t1))
+    (A, X, ta, ti), (A2, X2, ta2, ti2) = runs
+    n = A.shape[0]
+    u = torch.finfo(torch.float64).eps / 2
+    norm_a, norm_x = float(A.abs().sum(1).max()), float(X.abs().sum(1).max())
+    nuk = n * u * norm_a * norm_x
+    R = A @ X
+    R.diagonal().sub_(1.0)
+    res = float(R.abs().sum(1).max())
+    del R
+    d_a = float((A - A2).abs().max() / A.abs().max())
+    d_x = float((X - X2).abs().max() / X.abs().max())
+    print(f"[{tag}] {what} {n}^2, float64 on the card: assembly {ta:.3f} / {ta2:.3f} s, "
+          f"inverse {ti:.3f} / {ti2:.3f} s (two builds); ||A||_inf {norm_a:.4e}, ||X||_inf "
+          f"{norm_x:.4e}, kappa_inf {norm_a * norm_x:.4e}, n u kappa {nuk:.3e}; ||A X - I||_inf "
+          f"{res:.3e} = {res / nuk:.3e} of n u kappa (bar 1); second build: max|dA| {d_a:.3e} "
+          f"max|A| (bar {COARSE_REBUILD_BAR:.0e}), max|dX| {d_x:.3e} max|X| = "
+          f"{d_x / nuk:.3e} of n u kappa (bar 1) ({card_name})", flush=True)
+    check(res <= nuk, f"{tag}: ||A X - I|| above n u kappa")
+    check(d_a <= COARSE_REBUILD_BAR and d_x <= nuk, f"{tag}: the two builds disagree")
+    del A2, X2, runs
+    if host:
+        Ah = A.cpu().numpy()
+        t0 = time.perf_counter()
+        Xh = np.linalg.inv(Ah)
+        th = time.perf_counter() - t0
+        d_h = float(np.abs(X.cpu().numpy() - Xh).max() / np.abs(Xh).max())
+        print(f"[{tag}] np.linalg.inv of the same matrix on the host in {th:.3f} s: max|X - "
+              f"X_host| {d_h:.3e} max|X_host| = {d_h / nuk:.3e} of n u kappa (bar 1) "
+              f"({card_name})", flush=True)
+        check(d_h <= nuk, f"{tag}: the card's inverse disagrees with the host's")
+    del A, X
+    torch.cuda.empty_cache()
 
 
 def emit_tail(kernels, name_limit, kind, count):

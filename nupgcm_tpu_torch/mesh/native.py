@@ -1,7 +1,8 @@
 """ctypes bindings for the native meshkit library (native/meshkit.cpp).
 
-Fast host-side unique-edge extraction and RCM, with NumPy/SciPy
-fallbacks when the shared library is missing.  The library is built on
+Fast host-side mesh preprocessing (unique edges, RCM, partitioning,
+.msh parsing) with NumPy/SciPy fallbacks when the shared library is
+missing.  The library is built on
 first use if a compiler is available (``native/Makefile``).
 
 This loads the same ``native/libmeshkit.so`` as ``nupgcm_tpu`` and
@@ -95,6 +96,21 @@ def load(build: bool = True):
     ]
     lib.meshkit_rcm.restype = None
     lib.meshkit_rcm.argtypes = [i64p, i64p, ctypes.c_int64, i64p]
+    lib.meshkit_partition_cells.restype = None
+    lib.meshkit_partition_cells.argtypes = [
+        i64p, ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int32),
+    ]
+    lib.meshkit_parse_msh.restype = ctypes.c_void_p
+    lib.meshkit_parse_msh.argtypes = [ctypes.c_char_p]
+    for name in ("meshkit_msh_n_nodes", "meshkit_msh_n_blocks", "meshkit_msh_conn_size"):
+        getattr(lib, name).restype = ctypes.c_int64
+        getattr(lib, name).argtypes = [ctypes.c_void_p]
+    lib.meshkit_msh_copy.restype = None
+    lib.meshkit_msh_copy.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_double),
+                                     i64p, i64p, i64p, i64p]
+    lib.meshkit_msh_free.restype = None
+    lib.meshkit_msh_free.argtypes = [ctypes.c_void_p]
     _LIB = lib
     return _LIB
 
@@ -149,3 +165,59 @@ def rcm(indptr: np.ndarray, indices: np.ndarray) -> np.ndarray:
         perm.ctypes.data_as(i64p),
     )
     return perm
+
+
+def partition_cells(cell_dofs: np.ndarray, ndof: int, nparts: int) -> np.ndarray:
+    """Shard of each cell by the owned range of its lowest dof
+    (``ceil(ndof / nparts)`` dofs a shard), int32; native or numpy."""
+    lib = load()
+    cell_dofs = _i64(cell_dofs)
+    nc, nloc = cell_dofs.shape
+    if lib is None:
+        per = -(-ndof // nparts)
+        return np.minimum(cell_dofs.min(axis=1) // per, nparts - 1).astype(np.int32)
+    out = np.empty(nc, dtype=np.int32)
+    lib.meshkit_partition_cells(
+        cell_dofs.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), nc, nloc, ndof, nparts,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+    )
+    return out
+
+
+# gmsh element type -> nodes per element
+_NODES_PER_TYPE = {15: 1, 1: 2, 2: 3, 4: 4, 8: 3, 9: 6, 11: 10}
+
+
+def parse_msh_fast(path: str):
+    """Native $Nodes/$Elements parse of a gmsh 4.1 file: (coords (n, 3),
+    node_ids (n,), blocks), each block (dim, entity_tag, type,
+    conn (n_elements, n_nodes) of node ids); None when the native
+    library is unavailable or cannot parse the file."""
+    lib = load()
+    if lib is None:
+        return None
+    h = lib.meshkit_parse_msh(path.encode())
+    if not h:
+        return None
+    try:
+        nn = lib.meshkit_msh_n_nodes(h)
+        nb = lib.meshkit_msh_n_blocks(h)
+        coords = np.empty((nn, 3), dtype=np.float64)
+        node_ids = np.empty(nn, dtype=np.int64)
+        meta = np.empty(nb * 4, dtype=np.int64)
+        offs = np.empty(nb, dtype=np.int64)
+        conn = np.empty(lib.meshkit_msh_conn_size(h), dtype=np.int64)
+        i64p = ctypes.POINTER(ctypes.c_int64)
+        lib.meshkit_msh_copy(
+            h, coords.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+            node_ids.ctypes.data_as(i64p), meta.ctypes.data_as(i64p),
+            offs.ctypes.data_as(i64p), conn.ctypes.data_as(i64p),
+        )
+    finally:
+        lib.meshkit_msh_free(h)
+    blocks = []
+    for b in range(nb):
+        dim, tag, typ, n = (int(v) for v in meta[4 * b: 4 * b + 4])
+        nv = _NODES_PER_TYPE[typ]
+        blocks.append((dim, tag, typ, conn[offs[b]: offs[b] + n * nv].reshape(n, nv)))
+    return coords, node_ids, blocks

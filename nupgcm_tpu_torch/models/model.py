@@ -305,15 +305,20 @@ class PGModel:
         self.assembly_chunk = assembly_chunk
         self.matmul_precision = matmul_precision
 
-        # host seconds of the build's parts (the device work they queue
-        # may still run): constants, operators, and within operators the
-        # aggregate level's host assembly and dense inverse
+        # seconds of the build's parts, their device work included (a
+        # CUDA model synchronises before each reading): constants,
+        # operators, and within operators the coarse saddle matrix's
+        # assembly and inverse ("saddle_coarse" or "aggregate_level",
+        # which a refresh updates), within the latter the host
+        # aggregation of the mesh's vertices ("aggregation")
         self.build_seconds = {}
         with precision_ctx(matmul_precision):
             t0 = time.perf_counter()
             self._build_constants()
+            self._sync()
             t1 = time.perf_counter()
             self._build_operators()
+            self._sync()
             self.build_seconds.update(constants=t1 - t0, operators=time.perf_counter() - t1)
 
     @property
@@ -330,6 +335,12 @@ class PGModel:
             return "dense saddle coarse"
         return ("iterative saddle coarse + L2 aggregate level"
                 if self.saddle_coarse_l2 else "iterative saddle coarse")
+
+    def _sync(self):
+        """Wait for the work queued on a CUDA model's device (so that the
+        host clock reads it)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     # ------------------------------------------------------------------
     # static tables (host NumPy -> device tensors, once)
@@ -374,6 +385,21 @@ class PGModel:
         c["blk_p"] = blocks.scalar_table(fe.cd_p, item, self.device)
         c["h_cells"] = T(fe.h_cells)
         c["Gb3"] = asm.physical_grads(c["invJT"], c["dphi_b"], c["embed"])
+        if self.saddle_coarse:
+            h = np.asarray(fe.h_cells, np.float64)
+            h2 = np.where(h > 1e9, 0.0, h) ** 2  # zero the pad sentinels
+            c["sc_h2"] = T(h2)
+            # float64 geometry of the coarse saddle matrices (the dense
+            # coarse level, the aggregate level, the pin weights): an
+            # f64 model's own tensors, else float64 copies of the host's
+            geo = ("wq", "invJT", "embed", "phi_p", "dphi_p", "sc_h2")
+            if self.dtype == torch.float64:
+                c["sc64"] = {k: c[k] for k in geo}
+            else:
+                D = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float64,
+                                              device=self.device)
+                c["sc64"] = dict(zip(geo, map(D, (fe.geom.wq, fe.geom.invJT, fe.embed,
+                                                  fe.tab_p.phi, fe.tab_p.dphi, h2))))
 
         # coefficients at volume quadrature points (host eval, static)
         xq = fe.geom.xq
@@ -550,18 +576,39 @@ class PGModel:
         inf-sup stable, so the pp block gets Brezzi-Pitkaranta
         stabilization  +delta sum_c h_c^2 (grad p, grad q)  which also
         removes the spurious-mode singularity.  Small meshes
-        (4 n_vert <= coarse_dense_max): dense inverse once at setup.
-        Larger meshes: element-local coarse blocks, solved per
-        application by the aggregate-level cycle or an inner FGMRES.
+        (4 n_vert <= coarse_dense_max): a dense inverse, assembled and
+        inverted in float64 on the model's device.  Larger meshes:
+        element-local coarse blocks, solved per application by the
+        aggregate-level cycle or an inner FGMRES.
 
         ``nu_q`` (volume quadrature points; default the build-time
         ``c["nu_q"]``) lets ``refresh_precond`` rebuild the coarse
         level from the current eddy viscosity.
         """
         if self.saddle_coarse_dense:
-            self._assemble_saddle_coarse_dense(ops, nu_q)
+            self._sync()
+            t0 = time.perf_counter()
+            ops["saddle_coarse_inv"] = self._coarse_inverse(
+                self._saddle_coarse_matrix(nu_q)).to(self.dtype)
+            self._sync()
+            self.build_seconds["saddle_coarse"] = time.perf_counter() - t0
         else:
             self._assemble_saddle_coarse_elems(ops, nu_q)
+
+    def _sc_elem_blocks(self, g, wq, nu_q, f_q, invJT, h2):
+        """Element blocks (uu, up, pu, pp) of the BP-stabilized P1-P1
+        coarse saddle operator on a chunk of cells, in the chunk's
+        dtype, and its P1 gradients.  ``g`` holds the P1 tables
+        (``phi_p``, ``dphi_p``) and ``embed`` in that dtype.
+
+        Sign of the stabilization: with up = -B^T, pu = +B the pressure
+        Schur complement is +B A^{-1} B^T + pp, so pp must be POSITIVE
+        definite (+delta h^2 grad-grad)."""
+        Gp3 = asm.physical_grads(invJT, g["dphi_p"], g["embed"])
+        uu, up, pu = asm.elem_inversion_blocks(
+            wq, nu_q, f_q, g["phi_p"], Gp3, g["phi_p"], self.params.a2e2, self.variable_nu)
+        gg = torch.einsum("cq,cqid,cqjd->cij", wq, Gp3, Gp3)
+        return uu, up, pu, self.saddle_coarse_delta * h2[:, None, None] * gg, Gp3
 
     def _assemble_saddle_coarse_elems(self, ops, nu_q=None):
         """Element tensors of the BP-stabilized P1-P1 coarse saddle
@@ -570,36 +617,22 @@ class PGModel:
         already holds."""
         c = self.const
         nu_q = c["nu_q"] if nu_q is None else nu_q
-        fe = self.fe
-        a2e2 = self.params.a2e2
-        delta = self.saddle_coarse_delta
-        h_ = np.asarray(fe.h_cells, np.float64)
-        h2 = self._T(np.where(h_ > 1e9, 0.0, h_) ** 2)  # pad sentinels
 
         def build_(wq, nu_q, f_q, invJT, h2):
-            Gp3 = asm.physical_grads(invJT, c["dphi_p"], c["embed"])
-            uu, up, pu = asm.elem_inversion_blocks(
-                wq, nu_q, f_q, c["phi_p"], Gp3, c["phi_p"], a2e2, self.variable_nu)
-            gg = torch.einsum("cq,cqid,cqjd->cij", wq, Gp3, Gp3)
-            pp = delta * h2[:, None, None] * gg
+            uu, up, pu, pp, Gp3 = self._sc_elem_blocks(c, wq, nu_q, f_q, invJT, h2)
             return uu, up, pu, pp, self._visc_elems(wq, nu_q, f_q, Gp3, c["phi_p"])
 
         keys = ("sc_uu", "sc_up", "sc_pu", "sc_pp", "sc_visc_e")
         out = tuple(ops[k] for k in keys) if all(k in ops for k in keys) else None
         ops.update(zip(keys, self._chunked_cells(
-            build_, c["wq"], nu_q, c["f_q"], c["invJT"], h2, out=out)))
+            build_, c["wq"], nu_q, c["f_q"], c["invJT"], c["sc_h2"], out=out)))
 
-        # rank-one constant-pressure pin + spectral bound of the
-        # smoothing surrogate (for Chebyshev), computed once
-        nv = fe.spaces.p_space.ndof
-        free_p = c["free_inv"][fe.spaces.n_u:].cpu().numpy().astype(np.float64)
-        pw = np.zeros(nv)
-        cd_p = np.asarray(fe.cd_p, np.int64)
-        wq_np = np.asarray(fe.geom.wq, np.float64)
-        phi_p = np.asarray(fe.tab_p.phi, np.float64)
-        np.add.at(pw, cd_p.ravel(), np.einsum("cq,qk->ck", wq_np, phi_p).ravel())
-        pw = pw * free_p
-        ops["sc_pin"] = self._T(np.concatenate([np.zeros(3 * nv), pw / np.linalg.norm(pw)]))
+        # rank-one constant-pressure pin (free-masked volume weights) +
+        # spectral bound of the smoothing surrogate (for Chebyshev)
+        nv = self.fe.spaces.p_space.ndof
+        pw = self._sc_pin_weights() * c["free_inv"][self.fe.spaces.n_u:].to(torch.float64)
+        ops["sc_pin"] = torch.cat([pw.new_zeros(3 * nv),
+                                   pw / torch.linalg.vector_norm(pw)]).to(self.dtype)
 
         cmask = MaskedOperator(self._saddle_coarse_operator(ops), self._coarse_free())
         ops["sc_sigma"] = torch.mean(torch.abs(cmask.diagonal()))
@@ -617,57 +650,35 @@ class PGModel:
 
     def _assemble_saddle_coarse_l2(self, ops, nu_q=None):
         """Second (aggregate) coarse level for the iterative coarse
-        path: vertices are clustered into contiguous aggregates by a
-        capped BFS (in the RCM vertex order, so aggregates are
-        band-compact), the masked + pinned coarse saddle matrix is
-        Galerkin-projected onto the piecewise-constant aggregate basis
-        (host f64, element-level bincount scatter -- the global coarse
-        matrix is never formed), and the result is inverted dense once
-        and downcast to the working dtype."""
+        path: ``_aggregate_matrix`` inverted once in float64 on the
+        model's device and cast to the working dtype."""
+        self._sync()
         t0 = time.perf_counter()
-        c = self.const
-        fe = self.fe
-        nv = fe.spaces.p_space.ndof
-        uu, up, pu, stab, idx_u, idx_p, pv = self._sc_host_blocks(nu_q)
-        free = self._coarse_free().cpu().numpy().astype(np.float64)
-        # the aggregation and the dof map depend only on the mesh:
-        # refresh_precond reuses them
+        ops["sc2_inv"] = self._coarse_inverse(self._aggregate_matrix(ops, nu_q)).to(self.dtype)
+        ops["sc2_agg"] = self._sc2_tables()[0]
+        self._sync()
+        self.build_seconds["aggregate_level"] = time.perf_counter() - t0
+
+    def _sc2_tables(self):
+        """(agg, n_agg, dofmap) of the aggregate level, built once per
+        mesh on the host and kept on the model's device: vertices
+        clustered into contiguous aggregates by a capped BFS (in the RCM
+        vertex order, so aggregates are band-compact), and the coarse
+        dof -> aggregate dof map (3nv u then nv p -> 3*aggregate +
+        component, then 3na + aggregate).  ``refresh_precond`` reuses
+        them."""
         if not hasattr(self, "_sc2_cache"):
+            t0 = time.perf_counter()
+            fe = self.fe
             agg, na = _aggregate_vertices(
-                np.asarray(fe.cd_p[: fe.mesh.n_cells], np.int64), nv,
+                np.asarray(fe.cd_p[: fe.mesh.n_cells], np.int64), fe.spaces.p_space.ndof,
                 max(1, self.coarse_dense_max // 4))
-            # fine coarse-level dof (3nv u then nv p) -> aggregate dof
-            # (3*aggregate + component, then 3na + aggregate)
             dofmap = np.concatenate([(3 * agg[:, None] + np.arange(3)).reshape(-1),
                                      3 * na + agg])
-            self._sc2_cache = (agg, na, dofmap)
-        agg, na, dofmap = self._sc2_cache
-        N2 = 4 * na
-
-        def scatter_idx(rows, cols, vals):
-            r = np.repeat(rows, cols.shape[1], axis=1).ravel()
-            cc = np.tile(cols, (1, rows.shape[1])).ravel()
-            w = vals.ravel() * free[r] * free[cc]
-            return dofmap[r] * N2 + dofmap[cc], w
-
-        lins, ws = zip(*(scatter_idx(r, cols, v) for r, cols, v in
-                         ((idx_u, idx_u, uu), (idx_u, idx_p, up),
-                          (idx_p, idx_u, pu), (idx_p, idx_p, stab))))
-        A2 = np.bincount(np.concatenate(lins), weights=np.concatenate(ws),
-                         minlength=N2 * N2).reshape(N2, N2)
-        # Galerkin of the masked operator's identity-on-pinned part,
-        # P^T (I-F) P: keeps aggregates fully inside the Dirichlet
-        # boundary nonsingular
-        A2[np.diag_indices(N2)] += np.bincount(dofmap, weights=1.0 - free, minlength=N2)
-        # Galerkin of the rank-one pressure pin sigma w w^T, with the
-        # pin weights free-masked as in sc_pin
-        w = np.concatenate([np.zeros(3 * nv), pv * free[3 * nv:]])
-        w /= np.linalg.norm(w)
-        wc = np.bincount(dofmap, weights=w, minlength=N2)
-        A2 += float(ops["sc_sigma"]) * np.outer(wc, wc)
-        ops["sc2_inv"] = self._T(np.linalg.inv(A2))
-        ops["sc2_agg"] = torch.as_tensor(agg, dtype=torch.int64, device=self.device)
-        self.build_seconds["aggregate_level"] = time.perf_counter() - t0
+            as_dev = lambda a: torch.as_tensor(a, dtype=torch.int64, device=self.device)
+            self._sc2_cache = (as_dev(agg), na, as_dev(dofmap))
+            self.build_seconds["aggregation"] = time.perf_counter() - t0
+        return self._sc2_cache
 
     def _saddle_coarse_operator(self, ops) -> SaddleOperator:
         fe, c = self.fe, self.const
@@ -732,86 +743,103 @@ class PGModel:
 
         return solve
 
-    def _sc_host_blocks(self, nu_q=None):
-        """Host-float64 element blocks of the BP-stabilized P1-P1
-        coarse saddle operator (shared by the dense-inverse coarse path
-        and the aggregate level).  float64 throughout: the BP-stabilized
-        saddle matrix is too ill-conditioned for a float32 inverse;
-        only the final inverse is downcast to the working dtype."""
+    # ------------------------------------------------------------------
+    # the coarse saddle matrices (float64, on the model's device)
+    # ------------------------------------------------------------------
+    def _sc_blocks64(self, nu_q=None, cells=slice(None)):
+        """float64 element blocks (uu, up, pu, stab) of the coarse
+        saddle on ``cells``, from the float64 geometry ``const["sc64"]``
+        (never from the model's own, float32 in an f32 model: the
+        BP-stabilized saddle matrix is too ill-conditioned for float32;
+        only its inverse is cast to the working dtype).  ``nu_q`` and
+        ``f_q`` are upcast from the model's dtype."""
         c = self.const
-        fe = self.fe
-        a2e2 = float(self.params.a2e2)
-        wq = np.asarray(fe.geom.wq, np.float64)
-        invJT = np.asarray(fe.geom.invJT, np.float64)
-        embed = np.asarray(fe.embed, np.float64)
-        phi_p = np.asarray(fe.tab_p.phi, np.float64)
-        dphi_p = np.asarray(fe.tab_p.dphi, np.float64)
-        f_q = c["f_q"].cpu().numpy().astype(np.float64)
-        nu_q = (c["nu_q"] if nu_q is None else nu_q).cpu().numpy().astype(np.float64)
-        nlp = phi_p.shape[1]
+        g = c["sc64"]
+        nu_q = c["nu_q"] if nu_q is None else nu_q
+        f64 = torch.float64
+        return self._sc_elem_blocks(g, g["wq"][cells], nu_q[cells].to(f64),
+                                    c["f_q"][cells].to(f64), g["invJT"][cells],
+                                    g["sc_h2"][cells])[:4]
 
-        gp = np.einsum("cpr,qir->cqip", invJT, dphi_p)
-        Gp3 = np.einsum("cqip,pd->cqid", gp, embed)
-        eye3 = np.eye(3)
-        lap = np.einsum("cq,cq,cqid,cqjd->cji", wq, nu_q, Gp3, Gp3)
-        visc = a2e2 * np.einsum("cji,ba->cjbia", lap, eye3)
-        if self.variable_nu:
-            visc = visc + a2e2 * np.einsum(
-                "cq,cq,cqib,cqja->cjbia", wq, nu_q, Gp3, Gp3
-            )
-        mf = np.einsum("cq,cq,qj,qi->cji", wq, f_q, phi_p, phi_p)
-        Cskew = np.zeros((3, 3))
-        Cskew[1, 0], Cskew[0, 1] = 1.0, -1.0
-        nc = wq.shape[0]
-        uu = (visc + np.einsum("cji,ba->cjbia", mf, Cskew)).reshape(
-            nc, 3 * nlp, 3 * nlp
-        )
-        up = -np.einsum("cq,cqjb,qk->cjbk", wq, Gp3, phi_p).reshape(nc, 3 * nlp, nlp)
-        pu = np.einsum("cq,qk,cqia->ckia", wq, phi_p, Gp3).reshape(nc, nlp, 3 * nlp)
-        # BP stabilization on the pp block.  Sign: with our convention
-        # up = -B^T, pu = +B the pressure Schur complement is
-        # +B A^{-1} B^T + pp, so the stabilizer must be POSITIVE
-        # definite (+delta h^2 grad-grad).
-        h_ = np.asarray(fe.h_cells[:nc], np.float64)
-        h2 = np.where(h_ > 1e9, 0.0, h_) ** 2  # zero the pad sentinels
-        stab = self.saddle_coarse_delta * h2[:, None, None] * np.einsum(
-            "cq,cqid,cqjd->cji", wq, Gp3, Gp3
-        )
-        nv = fe.spaces.p_space.ndof
-        cd_p = np.asarray(fe.cd_p, np.int64)
-        idx_u = (3 * cd_p[:, :, None] + np.arange(3)).reshape(-1, 3 * nlp)
-        idx_p = 3 * nv + cd_p
-        pv = np.zeros(nv)
-        np.add.at(pv, cd_p.ravel(), np.einsum("cq,qk->ck", wq, phi_p).ravel())
-        return uu, up, pu, stab, idx_u, idx_p, pv
+    def _sc_pin_weights(self) -> torch.Tensor:
+        """float64 volume weights int phi_k of the P1 coarse pressure
+        dofs (the constant-pressure pin), on the model's device."""
+        c = self.const
+        g = c["sc64"]
+        pv = torch.einsum("cq,qk->ck", g["wq"], g["phi_p"])
+        return pv.new_zeros(self.fe.spaces.p_space.ndof).index_add_(
+            0, c["cd_p"].reshape(-1).long(), pv.reshape(-1))
 
-    def _assemble_saddle_coarse_dense(self, ops, nu_q=None):
-        """Dense-inverse coarse path (small meshes): host float64
-        assembly + inverse at setup and at each refresh."""
+    def _sc_scatter(self, nu_q, dofmap, N) -> torch.Tensor:
+        """sum_e of the free-masked float64 coarse element blocks into a
+        dense (N, N) float64 matrix, coarse dof i -> matrix dof
+        ``dofmap[i]``: P^T F A F P, F the coarse free mask.  The element
+        blocks are built and scattered (``index_add_``) chunk by chunk
+        of ``assembly_chunk`` cells; the global coarse matrix is never
+        formed where ``dofmap`` aggregates."""
+        c = self.const
         nv = self.fe.spaces.p_space.ndof
-        Nc = 4 * nv
-        uu, up, pu, stab, idx_u, idx_p, pv = self._sc_host_blocks(nu_q)
-        A = np.zeros((Nc, Nc))
+        free = self._coarse_free().to(torch.float64)
+        cd = c["cd_p"].long()
+        idx_u = (3 * cd[:, :, None] + torch.arange(3, device=self.device)).reshape(cd.shape[0], -1)
+        idx_p = 3 * nv + cd
+        A = torch.zeros(N * N, dtype=torch.float64, device=self.device)
+        step = self.assembly_chunk
+        for s in range(0, cd.shape[0], step):
+            iu, ip = idx_u[s:s + step], idx_p[s:s + step]
+            blocks = self._sc_blocks64(nu_q, slice(s, s + step))
+            for (rows, cols), v in zip(((iu, iu), (iu, ip), (ip, iu), (ip, ip)), blocks):
+                v = v * free[rows][:, :, None] * free[cols][:, None, :]
+                lin = dofmap[rows][:, :, None] * N + dofmap[cols][:, None, :]
+                A.index_add_(0, lin.reshape(-1), v.reshape(-1))
+        return A.view(N, N)
 
-        def scatter(rows, cols, vals):
-            r = np.repeat(rows, cols.shape[1], axis=1).ravel()
-            cc = np.tile(cols, (1, rows.shape[1])).ravel()
-            np.add.at(A, (r, cc), vals.ravel())
+    def _saddle_coarse_matrix(self, nu_q=None) -> torch.Tensor:
+        """The dense coarse level's float64 matrix (4nv, 4nv): the
+        masked coarse saddle, the identity on pinned dofs, and the
+        rank-one pin sigma w w^T of the constant-pressure mode (its
+        only nullspace; w the volume weights, sigma the mean |diagonal|;
+        the outer solve projects constants away regardless)."""
+        nv = self.fe.spaces.p_space.ndof
+        N = 4 * nv
+        A = self._sc_scatter(nu_q, torch.arange(N, device=self.device), N)
+        A.diagonal().add_(1.0 - self._coarse_free().to(torch.float64))
+        pv = self._sc_pin_weights()
+        w = torch.cat([pv.new_zeros(3 * nv), pv])
+        w = w / torch.linalg.vector_norm(w)
+        return A.addr_(A.diagonal().abs().mean() * w, w)
 
-        scatter(idx_u, idx_u, uu)
-        scatter(idx_u, idx_p, up)
-        scatter(idx_p, idx_u, pu)
-        scatter(idx_p, idx_p, stab)
-        free = self._coarse_free().cpu().numpy().astype(np.float64)
-        A = free[:, None] * A * free[None, :] + np.diag(1.0 - free)
-        # the constant-pressure mode is the (only) nullspace; pin the
-        # mean with a rank-one volume-weight augmentation (the outer
-        # solve projects constants away regardless)
-        w = np.concatenate([np.zeros(3 * nv), pv])
-        w /= np.linalg.norm(w)
-        sigma = np.mean(np.abs(np.diagonal(A)))
-        A += sigma * np.outer(w, w)
-        ops["saddle_coarse_inv"] = self._T(np.linalg.inv(A))
+    def _aggregate_matrix(self, ops, nu_q=None) -> torch.Tensor:
+        """The aggregate level's float64 matrix (4na, 4na): the masked +
+        pinned coarse saddle matrix Galerkin-projected onto the
+        piecewise-constant aggregate basis (``_sc2_tables``).  The
+        pinned dofs' identity projects to P^T (I-F) P, which keeps
+        aggregates wholly inside the Dirichlet boundary nonsingular; the
+        pin is ``ops["sc_pin"]``'s, sigma w w^T with free-masked
+        weights, projected as well."""
+        nv = self.fe.spaces.p_space.ndof
+        _, na, dofmap = self._sc2_tables()
+        N2 = 4 * na
+        free = self._coarse_free().to(torch.float64)
+        A2 = self._sc_scatter(nu_q, dofmap, N2)
+        A2.diagonal().add_(free.new_zeros(N2).index_add_(0, dofmap, 1.0 - free))
+        pv = self._sc_pin_weights() * free[3 * nv:]
+        w = torch.cat([pv.new_zeros(3 * nv), pv])
+        w = w / torch.linalg.vector_norm(w)
+        wc = w.new_zeros(N2).index_add_(0, dofmap, w)
+        return A2.addr_(ops["sc_sigma"].to(torch.float64) * wc, wc)
+
+    @staticmethod
+    def _coarse_inverse(A) -> torch.Tensor:
+        """Inverse of a coarse matrix in its dtype and on its device, by
+        LU with partial pivoting (the Coriolis skew makes it
+        nonsymmetric); a singular matrix raises."""
+        inv, info = torch.linalg.inv_ex(A)
+        if int(info):
+            raise torch.linalg.LinAlgError(
+                f"coarse saddle matrix of order {A.shape[0]} is singular: "
+                f"U[{int(info) - 1}, {int(info) - 1}] of its LU is zero")
+        return inv
 
     def _coarse_operator(self, coarse_e) -> SaddleOperator:
         """Vector-P1 operator over vertex nodes (layout 3*vertex+comp,

@@ -51,6 +51,13 @@ class ElementOperator:
             return self._launch(x)
         return kernels.scalar_matvec(self.Ae, self.cd, x)
 
+    def rmatvec(self, y: torch.Tensor) -> torch.Tensor:
+        """Transpose apply, x = sum_e P_e^T A_e^T P_e y: gather the
+        rows, apply the transposed element blocks, scatter (plain
+        PyTorch on any device: no step applies a transpose)."""
+        xe = torch.einsum("cij,ci->cj", self.Ae, y[self.cd.long()])
+        return xe.new_zeros(self.n).index_add_(0, self.cd.reshape(-1).long(), xe.reshape(-1))
+
     def diagonal(self) -> torch.Tensor:
         de = torch.diagonal(self.Ae, dim1=1, dim2=2)
         return self.Ae.new_zeros(self.n).index_add_(0, self.cd.reshape(-1).long(), de.reshape(-1))

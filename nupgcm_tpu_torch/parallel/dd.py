@@ -302,8 +302,8 @@ class DDModel:
             "saddle_coarse_inv" in ops or "sc_uu" in ops)
         if self.has_saddle_coarse:
             nv = sp.p_space.ndof
-            tr["tg_coarse_free"] = T(_host(c["tg_coarse_free"]))
-            tr["free_p_c"] = T(_host(c["free_inv"][n_u:]))
+            tr["tg_coarse_free"] = c["tg_coarse_free"]
+            tr["free_p_c"] = c["free_inv"][n_u:]
             # per-shard slices of the P1 c P2 inclusion (fine u node ->
             # two parent vertices); pad nodes -> weight 0
             tp, tw = _host(c["tg_parents"]), _host(c["tg_weights"])
@@ -318,7 +318,7 @@ class DDModel:
             t["tg_parents_dd"] = I(par)
             t["tg_weights_dd"] = T(wts)
             if "saddle_coarse_inv" in ops:
-                tr["sc_inv"] = T(_host(ops["saddle_coarse_inv"]))
+                tr["sc_inv"] = ops["saddle_coarse_inv"]
             else:
                 # iterative coarse path: coarse element tensors sharded
                 # by cell over GLOBAL vertex ids (no halo exchange)
@@ -327,14 +327,14 @@ class DDModel:
                 self._cd_host["pg"] = self._fix_invalid(
                     np.asarray(fe.cd_p)[self.cell_order[self.own]])
                 t["cd_pg"] = I(self._cd_host["pg"])
-                tr["sc_pin"] = T(_host(ops["sc_pin"]))
-                tr["sc_sigma"] = T(_host(ops["sc_sigma"]))
+                tr["sc_pin"] = ops["sc_pin"]
+                tr["sc_sigma"] = ops["sc_sigma"]
                 tr["sc_lmax"] = float(ops["sc_lmax"])
                 if "sc2_inv" in ops:
-                    tr["sc2_inv"] = T(_host(ops["sc2_inv"]))
-                    tr["sc2_agg"] = I(_host(ops["sc2_agg"]))
-                tr["cvisc_dinv"] = T(_host(ops["sc_visc_dinv"]))
-                tr["mp_c_dinv"] = T(_host(ops["mp_dinv"]))
+                    tr["sc2_inv"] = ops["sc2_inv"]
+                    tr["sc2_agg"] = ops["sc2_agg"].long()
+                tr["cvisc_dinv"] = ops["sc_visc_dinv"]
+                tr["mp_c_dinv"] = ops["mp_dinv"]
         for k in ("free_u", "free_b", "free_p"):
             t[k + "_bool"] = t[k].bool()
         self.tables = t
@@ -343,14 +343,16 @@ class DDModel:
     def _replicate(self, tr: dict) -> dict:
         """Rank 0's replicated tables on every rank: each rank builds its
         own model, whose device reductions (atomics) may differ in the
-        last bits; replicated values must not."""
+        last bits; replicated values must not.  The tables are the
+        model's own device tensors (no host round trip); with a process
+        group each is broadcast into a copy, so the model keeps its own."""
         g = self.group
         if g.pg is None:
             return tr
         out = {}
         for k, v in tr.items():
             x = (torch.tensor(v, dtype=torch.float64, device=g.device)
-                 if isinstance(v, float) else v.contiguous())
+                 if isinstance(v, float) else v.clone(memory_format=torch.contiguous_format))
             g.broadcast(x)
             out[k] = float(x) if isinstance(v, float) else x
         return out
@@ -845,16 +847,16 @@ class DDModel:
         tr = {"lmax_u": float(ops["lmax_u"])}
         if self.has_saddle_coarse:
             if "sc_inv" in self.tables_repl:
-                tr["sc_inv"] = T(_host(ops["saddle_coarse_inv"]))
+                tr["sc_inv"] = ops["saddle_coarse_inv"]
             else:
                 for k in ("sc_uu", "sc_up", "sc_pu", "sc_pp", "sc_visc_e"):
                     t[k] = T(self._reorder_cells(ops[k]))
-                tr["sc_pin"] = T(_host(ops["sc_pin"]))
-                tr["sc_sigma"] = T(_host(ops["sc_sigma"]))
+                tr["sc_pin"] = ops["sc_pin"]
+                tr["sc_sigma"] = ops["sc_sigma"]
                 tr["sc_lmax"] = float(ops["sc_lmax"])
-                tr["cvisc_dinv"] = T(_host(ops["sc_visc_dinv"]))
+                tr["cvisc_dinv"] = ops["sc_visc_dinv"]
                 if "sc2_inv" in self.tables_repl:
-                    tr["sc2_inv"] = T(_host(ops["sc2_inv"]))
+                    tr["sc2_inv"] = ops["sc2_inv"]
         self.tables_repl = {**self.tables_repl, **self._replicate(tr)}
         out = dict(dd)
         for k in EDDY_KEYS:

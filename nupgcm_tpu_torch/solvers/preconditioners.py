@@ -165,7 +165,7 @@ class AggregateCoarseCorrection:
         rc = r - A(z)
         # (na, 3).reshape(-1) lays dofs out as 3*aggregate + component,
         # matching the Galerkin matrix built in
-        # models/model.py::_assemble_saddle_coarse_l2
+        # models/model.py::_aggregate_matrix
         r2u = rc.new_zeros((na, 3)).index_add_(0, self.agg, rc[: 3 * nv].reshape(nv, 3))
         r2p = rc.new_zeros(na).index_add_(0, self.agg, rc[3 * nv:])
         z2 = self.inv @ torch.cat([r2u.reshape(-1), r2p])

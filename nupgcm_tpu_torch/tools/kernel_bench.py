@@ -221,30 +221,56 @@ def host_us(fn, n=1000):
     return 1e6 * t / n
 
 
+PAD_LAUNCHES = 64  # spin kernels that open a profiler trace (_pad)
+
+
+def _pad():
+    """PAD_LAUNCHES spin kernels, then a synchronise: they open a trace,
+    so that the device events a session loses from its start are theirs."""
+    for _ in range(PAD_LAUNCHES):
+        torch.cuda._sleep(1)
+    torch.cuda.synchronize()
+
+
+def _without_pad(summ):
+    """(device busy us, device events) of a trace summary, the pad's
+    spin kernels left out."""
+    pad = [v for name, v in summ["by_name"].items() if "spin_kernel" in name]
+    return (summ["busy_us"] - sum(us for _, us in pad),
+            sum(c for c, _ in summ["by_name"].values()) - sum(c for c, _ in pad))
+
+
 def _trace(fn, k):
-    """(device busy us, device events) of a profiler trace of ``k`` calls."""
+    """(device busy us, device events) of a profiler trace of ``k`` calls,
+    opened by the pad (left out of both); (0, 0) when any launch of the
+    calls lost its device event (``utils.timing.lost_events``): such a
+    trace holds no whole call."""
     import tempfile
 
-    from nupgcm_tpu_torch.utils.timing import device_trace, trace_summary
+    from nupgcm_tpu_torch.utils.timing import device_trace, lost_events, trace_summary
 
     with tempfile.TemporaryDirectory() as d:
         with device_trace(d) as path:
+            _pad()
             for _ in range(k):
                 fn()
-        summ = trace_summary(path)
-    return summ["busy_us"], sum(c for c, _ in summ["by_name"].values())
+        if any(i >= PAD_LAUNCHES for i in lost_events(path)["lost"]):
+            return 0.0, 0
+        return _without_pad(trace_summary(path))
 
 
 def device_ms(fn, n=20, tries=5):
     """Device busy ms per call over a profiler trace of ``n`` calls.  A
     trace that missed calls would read too little busy time, so a trace
-    is kept only if it holds the events that traces of one and two
+    is kept only if every launch of its calls found its device event
+    (``_trace``) and it holds the events that traces of one and two
     calls (E1, E2: the most of ``tries`` each) say ``n`` calls make,
     E1 + (n - 1)(E2 - E1); E1 may hold events a trace makes once,
     whatever its length.  None if no try held them.  Late in a long
     process a profiler session loses device events from the start of
     its window (a few, or all of them) in some sessions and not in
-    others: five tries of each kind leave few cases unmeasured."""
+    others: the pad takes those losses, and five tries of each kind
+    leave few cases unmeasured."""
     e1, e2 = (max(_trace(fn, k)[1] for _ in range(tries)) for k in (1, 2))
     if e2 <= e1:
         return None
@@ -347,7 +373,6 @@ def graph_ms(fn, calls=20, reps=10):
     return statistics.median(times)
 
 
-PAD_LAUNCHES = 64  # spin kernels that open a busy-share trace (busy_share)
 
 
 def busy_share(model, state, n=5, tries=5):
@@ -370,9 +395,7 @@ def busy_share(model, state, n=5, tries=5):
         st = state
         with tempfile.TemporaryDirectory() as d:
             with device_trace(d) as path:
-                for _ in range(PAD_LAUNCHES):
-                    torch.cuda._sleep(1)
-                torch.cuda.synchronize()
+                _pad()
                 t0 = time.perf_counter()
                 for _ in range(n):
                     st, _ = model.step(st)
@@ -383,8 +406,7 @@ def busy_share(model, state, n=5, tries=5):
             lost.append((steps_lost, len(pos) - steps_lost))
             summ = trace_summary(path)
         if not steps_lost:
-            pad_us = sum(us for k, (_, us) in summ["by_name"].items() if "spin_kernel" in k)
-            return (summ["busy_us"] - pad_us) / 1e6 / wall, wall, st, lost
+            return _without_pad(summ)[0] / 1e6 / wall, wall, st, lost
     return None, wall, st, lost
 
 

@@ -14,8 +14,10 @@ aggregate level on):
 
 Every mode reports the JAX scripts' JSON keys (``compile_s`` is the
 first block's wall seconds: nothing compiles here) plus ``n_dof``, the
-build split (mesh, FEData, operators with the host aggregate level
-apart) and the peak device MiB; ``base`` and the rows also list each
+build split (mesh, FEData, operators with the aggregate level apart:
+its float64 assembly and inverse on the model's device, with the host
+aggregation of the vertices within it as ``aggregation_s``) and the
+peak device MiB; ``base`` and the rows also list each
 timed step's CG and FGMRES counts and final residuals, and the timed
 block's K1/K2 launches per step by mode and local size.  There is no retry
 (the JAX scripts' works around their remote TPU), and JSON is written
@@ -73,7 +75,8 @@ def build(h=0.033, nz=12, device="cuda", dtype=torch.float32, **model_kw):
             "mesh_s": t1 - t0,
             "fedata_s": t2 - t1 - bs["constants"] - bs["operators"],
             "operators_s": bs["constants"] + bs["operators"] - bs.get("aggregate_level", 0.0),
-            "aggregate_s": bs.get("aggregate_level", 0.0), "build_s": t2 - t0,
+            "aggregate_s": bs.get("aggregate_level", 0.0),
+            "aggregation_s": bs.get("aggregation", 0.0), "build_s": t2 - t0,
             "build_peak_mib": _peak_mib(device)}
     return model, info
 

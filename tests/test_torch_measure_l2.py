@@ -8,7 +8,8 @@ state and the same element tensors (the JAX model's, as the other
 parity tests do); the invert's FGMRES count and every step's CG and
 FGMRES counts must be equal, and the JSON must hold the JAX scripts'
 keys.  Also the device-time rules: ``kernel_bench.device_ms``'s
-acceptance rule with a fake trace, ``kernel_bench.busy_share``'s
+acceptance rule with a fake trace, ``kernel_bench._trace``'s pad and
+its refusal of a trace that lost a call's event, ``kernel_bench.busy_share``'s
 retries, ``utils.timing.lost_events`` and ``chip_smoke.py``'s failure
 on a kernel device time that was not measured.
 """
@@ -268,3 +269,30 @@ def test_trace_check_describes_a_comparison():
     assert line.endswith("CUDA-graph replay 0.0479 ms a call")
     res.update(lost=[20], lag_us=[None], device_ms=[])
     assert "no match; complete traces no complete trace" in trace_check.describe(res)
+
+
+@pytest.mark.parametrize("lost, expect", [
+    ([], (1e4, 9)),                   # a whole trace: the pad left out
+    ([0, 5, 63], (1e4, 9)),           # the session lost the pad's first events
+    ([3, 64], (0.0, 0)),              # and a call's first launch: no whole call
+])
+def test_trace_pads_and_drops_a_trace_that_lost_a_call(monkeypatch, lost, expect):
+    """``kernel_bench._trace`` (under ``device_ms``) opens each trace with
+    PAD_LAUNCHES spin kernels, leaves them out of the busy time and the
+    event count, and reads (0, 0) from a trace in which a launch of the
+    calls lost its device event (``utils.timing.lost_events`` positions
+    from PAD_LAUNCHES on), so that ``device_ms`` keeps no such trace."""
+    import contextlib
+
+    from nupgcm_tpu_torch.tools import kernel_bench as kb
+    from nupgcm_tpu_torch.utils import timing
+
+    monkeypatch.setattr(timing, "device_trace", lambda d: contextlib.nullcontext("trace"))
+    monkeypatch.setattr(timing, "lost_events", lambda path: {"lost": lost})
+    monkeypatch.setattr(timing, "trace_summary", lambda path: {
+        "busy_us": 1.2e4, "by_name": {"spin_kernel(long)": (64, 2e3), "k": (9, 1e4)}})
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    pads, calls = [], []
+    monkeypatch.setattr(torch.cuda, "_sleep", pads.append)
+    assert kb._trace(lambda: calls.append(1), 3) == expect
+    assert pads == [1] * kb.PAD_LAUNCHES and calls == [1] * 3

@@ -8,7 +8,10 @@ package's (host NumPy in both).
     1e-12, cells as sets, tag closures), both writers emit the same
     file, and a file written by either package reads identically in the
     other;
-  * tests/test_mesh.py's inline ``GMSH_SAMPLE`` parses the same way.
+  * tests/test_mesh.py's inline ``GMSH_SAMPLE`` parses the same way;
+  * ``native.partition_cells`` and ``native.parse_msh_fast`` return the
+    JAX package's arrays on tests/test_native.py's cases, through the
+    native library and with it absent.
 """
 
 import numpy as np
@@ -142,3 +145,74 @@ def test_native_loader_rebuilds_a_broken_library(tmp_path):
                       shape=(n, n)).tocsr()
     assert native.load() is not None
     assert np.array_equal(copy.rcm(g.indptr, g.indices), native.rcm(g.indptr, g.indices))
+
+
+def _without_native(monkeypatch):
+    """Both packages as if ``native/libmeshkit.so`` were absent."""
+    from nupgcm_tpu.mesh import native as native_j
+
+    from nupgcm_tpu_torch.mesh import native as native_t
+
+    for mod in (native_j, native_t):
+        monkeypatch.setattr(mod, "load", lambda build=True: None)
+
+
+@pytest.mark.parametrize("lib", ["native", "absent"])
+def test_partition_cells_matches_jax(lib, monkeypatch):
+    """tests/test_native.py's case: the RCM-ordered P2 space of
+    bowl3D(0.15) in 4 parts."""
+    from nupgcm_tpu.fem.spaces import ScalarSpace as ScalarSpaceJ
+    from nupgcm_tpu.mesh import native as native_j
+
+    from nupgcm_tpu_torch.fem.spaces import ScalarSpace
+    from nupgcm_tpu_torch.mesh import native as native_t
+
+    assert_same_rcm_branch()
+    mesh = npt.generators.bowl3D(0.15, 0.5)
+    s = ScalarSpace(mesh, 2)
+    s.renumber(s.rcm_permutation())
+    sj = ScalarSpaceJ(npj.generators.bowl3D(0.15, 0.5), 2)
+    sj.renumber(sj.rcm_permutation())
+    assert np.array_equal(s.cell_dofs, sj.cell_dofs)
+    if lib == "absent":
+        _without_native(monkeypatch)
+    elif native_t.load() is None:
+        pytest.skip("native meshkit not buildable in this environment")
+    parts = native_t.partition_cells(s.cell_dofs, s.ndof, 4)
+    ref = native_j.partition_cells(sj.cell_dofs, sj.ndof, 4)
+    assert parts.dtype == ref.dtype == np.int32 and np.array_equal(parts, ref)
+    counts = np.bincount(parts, minlength=4)
+    assert counts.sum() == mesh.n_cells and counts.min() > 0.25 * counts.max()
+
+
+@pytest.mark.parametrize("lib", ["native", "absent"])
+def test_parse_msh_fast_matches_jax(lib, monkeypatch, tmp_path):
+    """The inline GMSH_SAMPLE (tests/test_native.py's case) and a 3D
+    bowl written by write_msh: the same nodes, ids and element blocks;
+    None from both without the library."""
+    from nupgcm_tpu.mesh import native as native_j
+
+    from nupgcm_tpu_torch.mesh import native as native_t
+
+    sample, bowl = tmp_path / "sample.msh", tmp_path / "bowl.msh"
+    sample.write_text(GMSH_SAMPLE)
+    npt.write_msh(npt.generators.bowl3D(0.4, 0.5, nz=2), str(bowl))
+    if lib == "absent":
+        _without_native(monkeypatch)
+    elif native_t.load() is None:
+        pytest.skip("native meshkit not buildable in this environment")
+    for path in (sample, bowl):
+        got, ref = native_t.parse_msh_fast(str(path)), native_j.parse_msh_fast(str(path))
+        if lib == "absent":
+            assert got is None and ref is None
+            continue
+        (x, ids, blocks), (xj, idsj, blocksj) = got, ref
+        assert np.array_equal(x, xj) and np.array_equal(ids, idsj)
+        assert len(blocks) == len(blocksj) > 0
+        for b, bj in zip(blocks, blocksj):
+            assert b[:3] == bj[:3] and np.array_equal(b[3], bj[3]), b[:3]
+    if lib == "native":
+        coords, _, blocks = native_t.parse_msh_fast(str(sample))
+        assert coords.shape == (4, 3)
+        assert sum(b[3].shape[0] for b in blocks if b[0] == 2) == 2
+        assert native_t.parse_msh_fast(str(tmp_path / "missing.msh")) is None
