@@ -6,7 +6,8 @@
 Phases (any failed check raises, and the script exits non-zero):
 
   1. device: needs CUDA; prints the card's name and power limit.
-  2. build: compiles the CUDA element-matvec kernels from csrc/.
+  2. build: compiles the CUDA kernels from csrc/ (the element matvec,
+     the assembled vertex-block matvec, the streaming probes).
   3. kernels vs plain: every kernel case of the h = 0.08 bowl3D model
      (each mode at each local size the step runs: the P2-P1 operator,
      the P2 velocity block and viscous smoother, the P1-P1 coarse
@@ -20,15 +21,27 @@ Phases (any failed check raises, and the script exits non-zero):
      device time (profiler busy time over 20 calls, and CUDA events
      around a CUDA-graph replay of 20 calls), host µs per call
      (1,000 calls before the synchronise) and the bound.
+     The iterative coarse level's two assembled vertex-block cases
+     (vblock_matvec: the P1-P1 saddle "full_pp" and its pressure
+     coupling "up", ops/assembled.py) are held against their plain
+     version at the same bars, with a second application bitwise equal
+     to the first (the kernel has no atomics), and timed with a cold L2
+     beside K1 on the same operator's element tensors and the CSR call
+     (kernel_bench.measure_assembled).
   3c. edge cases: every phase-3 case with the cells in a shuffled order
      (the widest block dof lists) and with blocks of 12 or 20 cells (a
      ragged last block), against the plain versions at the phase-3
-     bars; after phase 5 the same cases of the 2D bowl2D model (P2-P1
-     triangles).
+     bars; the vertex-block cases on the shuffled cells (their pattern
+     rebuilt from the shuffled dof table); after phase 5 the same cases
+     of the 2D bowl2D model (P2-P1 triangles), and of bowl2D on the
+     iterative coarse level (coarse_dense_max lowered: the vertex-block
+     cases on P1 triangles).
   4. slice: PGModel on bowl3D(0.08, 0.5, nz=9) in f32 (the bench.py
      mixing configuration): set_b, invert, 10 BDF2 steps.  Every state
      is finite, every solve stays under its iteration cap, every kernel
-     of the path launched and no plain version ran.
+     of the path launched and no plain version ran; the coarse level
+     went through the vertex-block kernel ("full_pp" and "up") and K1
+     launched no P1-P1 "full_pp" or "up".
   3b. probes vs plain: K3 stream_saddle and K1 pinned on the slice's
      element tensors in f32 and f64, K4 stream_probe in f32 on
      profile_stream's shapes.  Bars: K1 pinned as phase 3; K3 and K4
@@ -152,7 +165,9 @@ Phases (any failed check raises, and the script exits non-zero):
           invert s and FGMRES count, every step's CG and FGMRES counts
           and residuals, steps/s, peak memory and launches per step by
           mode and local size.  No solve at its cap, finite residuals
-          and max|b|, every K1/K2 counter launched, no plain call.
+          and max|b|, every kernel of the path launched (the vertex-block
+          kernel on the coarse level, no K1 P1-P1 "full_pp" or "up"),
+          no plain call.
      11b. retune(saddle_coarse_inner=0) on the same model (mode "k0"),
           5 steps, the same prints and checks; where 11a already ran at
           k = 0 (the default with the aggregate level and the Chebyshev
@@ -161,9 +176,9 @@ Phases (any failed check raises, and the script exits non-zero):
           that lost no device event of the steps (kernel_bench.busy_share:
           a pad of spin kernels opens the trace; up to 5 tries, "not
           measured" otherwise), beside the wall of 3 unprofiled steps.
-     11c. every K1/K2 case of that model against its plain version at
-          the phase-3 bars, timed as phase 3; every case reads a device
-          time at or above its bound.
+     11c. every K1/K2 and vertex-block case of that model against its
+          plain version at the phase-3 bars, timed as phase 3; every case
+          reads a device time at or above its bound.
      11d. on the slice model: FEData.plan_inv assembles elem_inversion
           (computed afresh from the model's tables) into a COOMatrix on
           the card, and its SpMV matches K1 "full" on the unmasked
@@ -209,10 +224,11 @@ Phases (any failed check raises, and the script exits non-zero):
      while an inverse factorised in float32 (residual about u_f32 kappa)
      would exceed them some 5e4 times.
 
-Every K1/K2 and probe case of phases 3, 3b, 8b and 11c reads two
-device times: the profiler's busy time (kernel_bench.device_ms; None
-when no trace held every call, which happens late in a long process)
-and a CUDA-graph replay of 20 calls timed by CUDA events
+Every kernel case of phases 3, 3b, 8b and 11c reads two
+device times: the profiler's busy time (kernel_bench.device_ms: the
+median of three traces that held every call, or None when none did,
+which happens late in a long process; readings that spread are printed
+at the end) and a CUDA-graph replay of 20 calls timed by CUDA events
 (kernel_bench.graph_ms, which needs no profiler and is always read).
 Both must be at or above the bound, and the busy time at most 1.1
 times the replay's.  One phase runs alone from a script that loads this file
@@ -235,9 +251,11 @@ Phases run in the order 1, 2, 4a (build the slice), 3, 3c, 3b, 4b
 (step it), 6, 7, 5 (with the 2D edge cases), 8a with 12a, 8b, 9a-9d, 10a-10c,
 11a-11c, 12b, 11d-11e.
 The last three lines are the card's name and power limit, a JSON object
-{"kernels": [...]} (K1/K2 entries also carry "dd_launches", their
-launches in 10b's DD steps, and "bowl_launches", in 11a's run), and
-{"ok": true, "device": {...}}.
+{"kernels": [...]} (each entry's "launches" come from the path named in
+its "path": 4b's slice steps, 6's tools for the probes, or 10b's DD
+steps for K1's "full_pp", which only DD runs now; K1/K2 and vertex-block
+entries also carry "dd_launches", their launches in 10b's DD steps, and
+"bowl_launches", in 11a's run), and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -254,19 +272,26 @@ import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parent
 REPLACES = {"saddle_matvec": "nupgcm_tpu/ops/window.py:769",
+            "vblock_matvec": "nupgcm_tpu/ops/window.py:769",
             "scalar_matvec": "nupgcm_tpu/ops/window.py:865",
             "saddle_matvec[pinned]": "tools/profile_matvec.py:203",
             "stream_saddle": "tools/profile_matvec.py:174",
             "stream_probe": "tools/profile_stream.py:75"}
 SOURCES = {"saddle_matvec": "nupgcm_tpu_torch/csrc/element_matvec.cu",
+           "vblock_matvec": "nupgcm_tpu_torch/csrc/vertex_block_matvec.cu",
            "scalar_matvec": "nupgcm_tpu_torch/csrc/element_matvec.cu",
            "saddle_matvec[pinned]": "nupgcm_tpu_torch/csrc/element_matvec.cu",
            "stream_saddle": "nupgcm_tpu_torch/csrc/stream_probe.cu",
            "stream_probe": "nupgcm_tpu_torch/csrc/stream_probe.cu"}
 BARS = {"float32": 2e-6, "float64": 1e-12}
 RESUME_BAR = 1e-4          # phase 8a (f64), relative to max|u| and max|b|
-STEP_COUNTERS = ("saddle_full", "saddle_full_pp", "saddle_uu", "saddle_up", "scalar")
-INVERT_COUNTERS = STEP_COUNTERS[:4]
+# the single-device step: the iterative coarse level's saddle and coupling
+# through the vertex-block kernel; DD keeps K1 "full_pp" on its shards
+STEP_COUNTERS = ("saddle_full", "saddle_uu", "saddle_up", "scalar", "vblock_full_pp",
+                 "vblock_up")
+INVERT_COUNTERS = tuple(k for k in STEP_COUNTERS if k != "scalar")
+DD_COUNTERS = ("saddle_full", "saddle_full_pp", "saddle_uu", "saddle_up", "scalar")
+COARSE_K1 = ("saddle_up[4,4]", "saddle_up[3,3]")  # K1's P1-P1 "up" shapes
 # 9b, FE rel-L2 (a squared-norm ratio, so about 3e-5 relative) of f32
 # against the f64 golden; f32 reads about 1e-14 (u) and 1e-16 (b)
 SPHERE_BAR = 1e-9
@@ -317,22 +342,33 @@ def phase_kernels(model, K, card_name, tag="kernels", Kv_e=None):
     from nupgcm_tpu_torch.tools import kernel_bench as kb
 
     results = {}
-    for case in kb.kernel_cases(model, Kv_e):
-        name = case["entry"] + ("" if case["mode"] is None else f"[{case['mode']}]")
+    log = lambda *a: print(*a, f"({card_name})", flush=True)
+    for case in kb.kernel_cases(model, Kv_e) + kb.assembled_cases(model):
+        name = case_name(case)
         err = check_case(model, K, case, name, tag)
-        rec = kb.measure_case(model, K, case, log=lambda *a: print(*a, f"({card_name})",
-                                                                   flush=True), tag=tag)
+        measure = kb.measure_assembled if case["entry"] == "vblock_matvec" else kb.measure_case
+        rec = measure(model, K, case, log=log, tag=tag)
         check(rec["lib_rel_err"] <= BARS["float32"],
               f"{name} {case['label']}: the CSR yardstick disagrees with plain")
         check_device(rec, f"{name} {case['label']}")
         check_bound(rec["library_device_ms"], rec["library_bound_ms"],
                     f"{name} {case['label']} library_device_ms")
         top = results.setdefault(name, dict(rec, name=name, max_abs_err=0.0, cases=[],
-                                            counter="scalar" if case["mode"] is None
-                                            else f"saddle_{case['mode']}"))
+                                            counter=counter_of(case)))
         top["max_abs_err"] = max(top["max_abs_err"], err)
         top["cases"].append(rec)
     return results
+
+
+def case_name(case):
+    return case["entry"] + ("" if case["mode"] is None else f"[{case['mode']}]")
+
+
+def counter_of(case):
+    """The ``kernels.launches`` key of a kernel case."""
+    if case["mode"] is None:
+        return "scalar"
+    return f"{'vblock' if case['entry'] == 'vblock_matvec' else 'saddle'}_{case['mode']}"
 
 
 def check_device(rec, what):
@@ -363,7 +399,9 @@ def check_bound(device_ms, bound_ms, what, required=False):
 
 def check_case(model, K, case, name, tag):
     """A case's kernel against its plain version in f32 and f64 at the
-    BARS of max|y|; returns the f32 max|y - y_plain|."""
+    BARS of max|y|, and for a vertex-block case (no atomics) a second
+    application bitwise equal to the first; returns the f32
+    max|y - y_plain|."""
     import torch
 
     from nupgcm_tpu_torch.tools import kernel_bench as kb
@@ -381,6 +419,11 @@ def check_case(model, K, case, name, tag):
               f"max|y-y_plain| = {err:.3e} = {err / scale:.2e} max|y| (bar {bar:.0e})",
               flush=True)
         check(err <= bar * scale, f"{name} {case['label']} {dtype}: kernel disagrees with plain")
+        if case["entry"] == "vblock_matvec":
+            y2 = kfn()
+            torch.cuda.synchronize()
+            check(torch.equal(y, y2), f"{name} {case['label']} {dtype}: a second application "
+                  "differs from the first")
         out = err if out is None else out
     return out
 
@@ -393,14 +436,20 @@ def phase_edges(model, K, tag):
     import torch
 
     from nupgcm_tpu_torch.ops import blocks
+    from nupgcm_tpu_torch.ops.assembled import vertex_pattern
     from nupgcm_tpu_torch.tools import kernel_bench as kb
 
     nc = model.const["cd_u"].shape[0]
     perm = torch.as_tensor(np.random.default_rng(3).permutation(nc), device=model.device)
     ragged = 12 if nc % 12 else 20
     check(nc % ragged != 0, f"{tag}: blocks of {ragged} cells divide the cell count")
+    for case in kb.assembled_cases(model):  # no cell blocks: the shuffled order alone
+        c = dict(case, label=f"{case['label']}, shuffled",
+                 sc=tuple(t[perm] for t in case["sc"]),
+                 pattern=vertex_pattern(case["cd"][0][perm], case["n_nodes"]))
+        check_case(model, K, c, case_name(case), tag)
     for case in kb.kernel_cases(model):
-        name = case["entry"] + ("" if case["mode"] is None else f"[{case['mode']}]")
+        name = case_name(case)
         for how in ("shuffled", "ragged"):
             c = dict(case, label=f"{case['label']}, {how}")
             if how == "shuffled":
@@ -591,20 +640,26 @@ def check_kernels(model, K, tag):
     f64 at BARS, without timing."""
     from nupgcm_tpu_torch.tools import kernel_bench as kb
 
-    for case in kb.kernel_cases(model):
-        check_case(model, K, case, case["entry"] + ("" if case["mode"] is None
-                                                    else f"[{case['mode']}]"), tag)
+    for case in kb.kernel_cases(model) + kb.assembled_cases(model):
+        check_case(model, K, case, case_name(case), tag)
 
 
 def check_path(model, K, tag, counters=STEP_COUNTERS):
     """The counts since the last reset: every kernel of ``counters`` on
-    the model's path launched and no plain version ran.  Returns the
-    launches."""
+    the model's path launched (the coarse level's where the model has
+    the iterative one) and no plain version ran; on the single-device
+    path (``counters`` with the vertex-block kernel) K1 ran no P1-P1
+    "full_pp" or "up".  Returns the launches."""
     launches, plain = dict(K.launches), dict(K.plain_calls)
+    coarse = ("saddle_full_pp", "vblock_full_pp", "vblock_up")
     missing = [k for k in counters if not launches[k]
-               and not (k == "saddle_full_pp" and "sc_uu" not in model.ops)]
+               and not (k in coarse and "sc_uu" not in model.ops)]
     check(not missing, f"{tag}: {missing} never launched")
     check(all(v == 0 for v in plain.values()), f"{tag}: a plain version ran on the card: {plain}")
+    if "vblock_full_pp" in counters:
+        k1 = {k: v for k, v in K.shape_launches.items()
+              if v and (k.startswith("saddle_full_pp") or k in COARSE_K1)}
+        check(not k1, f"{tag}: K1 ran the P1-P1 coarse operator: {k1}")
     return launches
 
 
@@ -1176,7 +1231,7 @@ def phase_dd_slice(K, group, card_name, slice_counts):
               f"10b step {i + 1}: solver counts differ from one device's by > 1")
     for k in ("u", "p", "b", "u_prev", "b_prev"):
         check(bool(torch.isfinite(sv[k]).all()), f"10b: non-finite {k}")
-    check_path(model, K, "10b")
+    check_path(model, K, "10b", DD_COUNTERS)
     fmt = lambda rs, k: [int(a[k]) for a in rs]
     print(f"[10b] 10 DD steps in {wall:.3f} s = {10 / wall:.3f} steps/s; FGMRES per step "
           f"{fmt(auxs, 'inv_iters')} (one device from the same state {fmt(sd, 'inv_iters')}"
@@ -1567,6 +1622,7 @@ def main():
     import nupgcm_tpu_torch as npg
     from nupgcm_tpu_torch.ops import build
     from nupgcm_tpu_torch.ops import kernels as K
+    from nupgcm_tpu_torch.tools import kernel_bench as kb
     from nupgcm_tpu_torch.tools._common import card_name_limit, initial_b, mixing_setup
 
     check(pathlib.Path(npg.__file__).resolve().is_relative_to(ROOT),
@@ -1648,14 +1704,15 @@ def main():
     check(all(launches[k] > 0 for k in STEP_COUNTERS),
           f"a kernel of the path never launched: {launches}")
     check(all(n == 0 for n in plain.values()), f"a plain version ran on the card: {plain}")
+    check_path(model, K, "slice")  # and K1 ran no P1-P1 coarse case
 
     for r in results.values():
-        r["launches"] = launches[r["counter"]]
+        r["launches"], r["path"] = launches[r["counter"]], "4b slice steps"
 
     # 6. the measurement tools, 7. the trace
     tool_launches = phase_tools(model, K, name_limit)
     for r in probes.values():
-        r["launches"] = tool_launches[r["counter"]]
+        r["launches"], r["path"] = tool_launches[r["counter"]], "6 tools"
     state = phase_trace(model, state, name_limit)
     del model, state
     torch.cuda.empty_cache()
@@ -1666,6 +1723,13 @@ def main():
     check_kernels(golden, K, "edges 2D")  # 3c on P2-P1 triangles
     phase_edges(golden, K, "edges 2D")
     del golden, st
+    # 3c on P1 triangles: bowl2D on the iterative coarse level
+    tri = mixing_setup(npg.generators.bowl2D(0.1, 0.5), "cuda", torch.float32,
+                       coarse_dense_max=16)
+    check(bool(kb.assembled_cases(tri)), "edges 2D: bowl2D took no iterative coarse level")
+    check_kernels(tri, K, "edges 2D coarse")
+    phase_edges(tri, K, "edges 2D coarse")
+    del tri
     torch.cuda.empty_cache()
 
     # 8. full physics
@@ -1689,9 +1753,12 @@ def main():
     phase_precision(golden_state, name_limit)
 
     check("jax" not in sys.modules, "JAX was imported")
+    for r in results.values():  # K1 "full_pp": DD's path alone now
+        if not r["launches"]:
+            r["launches"], r["path"] = dd_launches[r["counter"]], "10b DD steps"
     kernels = [
         {"name": r["name"], "route": "cuda", "source": SOURCES[r["entry"]],
-         "replaces": REPLACES[r["entry"]], "launches": r["launches"],
+         "replaces": REPLACES[r["entry"]], "launches": r["launches"], "path": r["path"],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
          "device_ms": r["device_ms"], "graph_ms": r["graph_ms"],
@@ -1700,6 +1767,11 @@ def main():
     for entry, r in zip(kernels, results.values()):  # K1/K2 first: their DD, 11a launches
         entry["dd_launches"] = dd_launches[r["counter"]]
         entry["bowl_launches"] = bowl_launches[r["counter"]]
+    check(all(e["launches"] > 0 for e in kernels), f"a kernel never launched on its path: "
+          f"{[(e['name'], e['path']) for e in kernels if not e['launches']]}")
+    from nupgcm_tpu_torch.tools import kernel_bench as kb
+    print(f"[trace] device_ms readings whose {kb.DEVICE_READS} traces spread beyond "
+          f"{kb.SPREAD_BAR}x, (median, readings) ms: {kb.SPREADS} ({name_limit})", flush=True)
     emit_tail(kernels, name_limit, kind, torch.cuda.device_count())
 
 

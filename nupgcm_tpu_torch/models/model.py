@@ -25,11 +25,11 @@ rebuilds the inversion blocks from the current b every 10 steps
 preconditioner on the caller's cadence.
 
 Preconditioner branches: the P1-P1 saddle-coarse level (the default;
-dense inverse on small meshes, element-local with an aggregate second
-level on large ones) or, with ``saddle_coarse=False, twogrid=True``,
-the u-block two-grid (a P1-vertex coarse level of the velocity block:
-dense inverse on small meshes, inner CG on the element-local P1
-operator on large ones).
+dense inverse on small meshes; on large ones iterative, its operator
+applied from assembled vertex blocks, with an aggregate second level)
+or, with ``saddle_coarse=False, twogrid=True``, the u-block two-grid (a
+P1-vertex coarse level of the velocity block: dense inverse on small
+meshes, inner CG on the element-local P1 operator on large ones).
 """
 
 from __future__ import annotations
@@ -45,6 +45,7 @@ import torch
 from ..fem import assembly as asm
 from ..fem.spaces import _eval_coeff
 from ..ops import blocks, build
+from ..ops.assembled import AssembledSaddle, vertex_pattern
 from ..ops.element import ElementOperator, SaddleOperator
 from ..ops.sparse import MaskedOperator
 from ..solvers.cg import cg
@@ -336,6 +337,19 @@ class PGModel:
         return ("iterative saddle coarse + L2 aggregate level"
                 if self.saddle_coarse_l2 else "iterative saddle coarse")
 
+    @property
+    def ops(self) -> dict:
+        """The operator dict the entry points run on."""
+        return self._ops
+
+    @ops.setter
+    def ops(self, ops: dict):
+        # the iterative coarse level's assembled blocks follow the dict's
+        # element tensors (a dict set from outside, a refresh's result)
+        self._ops = ops
+        if hasattr(self, "_sc_op") and "sc_uu" in ops:
+            self._sc_op.fill(*(ops[k] for k in ("sc_uu", "sc_up", "sc_pu", "sc_pp")))
+
     def _sync(self):
         """Wait for the work queued on a CUDA model's device (so that the
         host clock reads it)."""
@@ -375,12 +389,18 @@ class PGModel:
         item = torch.empty((), dtype=self.dtype).element_size()
         c["blk_fine"] = blocks.operator_tables(fe.cd_u, fe.cd_p, ("full", "up", "uu"), item,
                                                self.device)
-        # the P1 coarse operators: the saddle-coarse level's, or the
-        # two-grid's vector-P1 velocity block (element branch)
-        coarse_modes = (("full_pp", "up", "uu") if self.saddle_coarse
-                        else ("uu",) if self.twogrid and not self.coarse_dense else None)
-        c["blk_coarse"] = (blocks.operator_tables(fe.cd_p, fe.cd_p, coarse_modes, item,
-                                                  self.device) if coarse_modes else None)
+        # the P1 coarse velocity operators: the saddle-coarse level's
+        # visc surrogate and uu block, or the two-grid's vector-P1
+        # velocity block (element branch)
+        c["blk_coarse"] = (blocks.operator_tables(fe.cd_p, fe.cd_p, ("uu",), item, self.device)
+                           if self.saddle_coarse or (self.twogrid and not self.coarse_dense)
+                           else None)
+        # the iterative saddle-coarse level applies its saddle operator
+        # from assembled vertex blocks (ops/assembled.py): the pattern
+        # once per mesh, the blocks refilled from the element tensors
+        if self.saddle_coarse and not self.saddle_coarse_dense:
+            c["vblk_coarse"] = vertex_pattern(c["cd_p"], sp.p_space.ndof)
+            self._sc_op = AssembledSaddle(c["vblk_coarse"], c["cd_p"], self.dtype)
         c["blk_b"] = blocks.scalar_table(fe.cd_b, item, self.device)
         c["blk_p"] = blocks.scalar_table(fe.cd_p, item, self.device)
         c["h_cells"] = T(fe.h_cells)
@@ -634,7 +654,8 @@ class PGModel:
         ops["sc_pin"] = torch.cat([pw.new_zeros(3 * nv),
                                    pw / torch.linalg.vector_norm(pw)]).to(self.dtype)
 
-        cmask = MaskedOperator(self._saddle_coarse_operator(ops), self._coarse_free())
+        self._sc_op.fill(*(ops[k] for k in keys[:4]))
+        cmask = MaskedOperator(self._sc_op, self._coarse_free())
         ops["sc_sigma"] = torch.mean(torch.abs(cmask.diagonal()))
         cvisc = MaskedOperator(self._coarse_operator(ops["sc_visc_e"]),
                                c["tg_coarse_free"])
@@ -680,15 +701,8 @@ class PGModel:
             self.build_seconds["aggregation"] = time.perf_counter() - t0
         return self._sc2_cache
 
-    def _saddle_coarse_operator(self, ops) -> SaddleOperator:
-        fe, c = self.fe, self.const
-        nv = fe.spaces.p_space.ndof
-        return SaddleOperator(
-            uu=ops["sc_uu"], up=ops["sc_up"], pu=ops["sc_pu"], pp=ops["sc_pp"],
-            cd_u=c["cd_p"], cd_p=c["cd_p"], n_u_nodes=nv, n_p=nv, tables=c["blk_coarse"])
-
     def _saddle_coarse_solver(self, ops, mp_op):
-        """Coarse solve of the element-local path: the coarse-level
+        """Coarse solve of the iterative path: the coarse-level
         block-triangular Stokes preconditioner (Chebyshev on the P1
         visc surrogate + Mp) followed by the aggregate level, applied
         once (k = 0) or as the preconditioner of a k-step inner FGMRES
@@ -698,7 +712,7 @@ class PGModel:
         c = self.const
         nv = self.fe.spaces.p_space.ndof
         free_c = self._coarse_free()
-        cop = self._saddle_coarse_operator(ops)
+        cop = self._sc_op
         cmask = MaskedOperator(cop, free_c)
         w = ops["sc_pin"]
         sigma = ops["sc_sigma"]

@@ -108,6 +108,10 @@ def load():
     lib.nupgcm_em_prepare.restype = i
     lib.nupgcm_em_apply.argtypes = [vp] * 5
     lib.nupgcm_em_apply.restype = i
+    lib.nupgcm_vb_prepare.argtypes = [vp]
+    lib.nupgcm_vb_prepare.restype = i
+    lib.nupgcm_vb_apply.argtypes = [vp] * 4
+    lib.nupgcm_vb_apply.restype = i
     for name in ("nupgcm_stream_saddle_f32", "nupgcm_stream_saddle_f64"):
         fn = getattr(lib, name)
         fn.argtypes = [vp] * 6 + [ll, i, i, i, vp]

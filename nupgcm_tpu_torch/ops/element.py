@@ -132,13 +132,19 @@ class SaddleOperator:
     def diagonal(self) -> torch.Tensor:
         """Assembled diagonal: velocity (3 n_u_nodes), then pressure
         (n_p) when the operator has a pressure block."""
-        du_e = torch.diagonal(self.uu, dim1=1, dim2=2).reshape(-1, 3)
-        du = self.uu.new_zeros((self.n_u_nodes, 3)).index_add_(
-            0, self.cd_u.reshape(-1).long(), du_e).reshape(-1)
-        if self.up is None:
-            return du
-        dp = self.uu.new_zeros(self.n_p)
-        if self.pp is not None:
-            dp.index_add_(0, self.cd_p.reshape(-1).long(),
-                          torch.diagonal(self.pp, dim1=1, dim2=2).reshape(-1))
-        return torch.cat([du, dp])
+        return saddle_diagonal(self.uu, self.pp, self.cd_u, self.n_u_nodes,
+                               None if self.up is None else self.cd_p, self.n_p)
+
+
+def saddle_diagonal(uu, pp, cd_u, n_u_nodes, cd_p=None, n_p=0) -> torch.Tensor:
+    """Assembled diagonal of a saddle operator's element tensors: the
+    velocity block's (3 n_u_nodes), then, where ``cd_p`` is given, the
+    pressure block's (n_p; zero without ``pp``)."""
+    du_e = torch.diagonal(uu, dim1=1, dim2=2).reshape(-1, 3)
+    du = uu.new_zeros((n_u_nodes, 3)).index_add_(0, cd_u.reshape(-1).long(), du_e).reshape(-1)
+    if cd_p is None:
+        return du
+    dp = uu.new_zeros(n_p)
+    if pp is not None:
+        dp.index_add_(0, cd_p.reshape(-1).long(), torch.diagonal(pp, dim1=1, dim2=2).reshape(-1))
+    return torch.cat([du, dp])

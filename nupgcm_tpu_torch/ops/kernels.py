@@ -15,6 +15,14 @@ One CUDA kernel, ``block_matvec_kernel`` in ``csrc/element_matvec.cu``
 * ``scalar_matvec`` (K2) -- one scalar space, A (nc, nl, nl).  It
   replaces ``window.py::scalar_matvec``.
 
+A second kernel, in ``csrc/vertex_block_matvec.cu``, applies the P1-P1
+coarse saddle operator from its assembled form (``ops/assembled.py``):
+
+* ``vblock_matvec`` -- one 4x4 block per vertex pair in CSR order, in
+  modes "full_pp" (the whole block) and "up" (the 3x1 pressure-gradient
+  column, from its own copy); it replaces ``window.py::saddle_matvec``
+  in those modes on the coarse level.  ``VBlockLaunch`` prepares it.
+
 Operators applied many times hold a ``PreparedLaunch``
 (``saddle_launch``, ``scalar_launch``): the tensors, tables and shapes
 are checked once, and each call reads the current stream, takes as y a
@@ -61,12 +69,15 @@ from . import blocks, build
 SADDLE_MODES = ("full", "full_pp", "uu", "up")
 LANES = 128  # the TPU kernels' lane width: one grid block of cells
 
+VBLOCK_MODES = ("full_pp", "up")
 launches = {**{f"saddle_{m}": 0 for m in SADDLE_MODES}, "scalar": 0,
-            "saddle_full_pinned": 0, "stream_saddle": 0, "stream_probe": 0}
-plain_calls = {"saddle": 0, "scalar": 0, "stream_saddle": 0, "stream_probe": 0}
-# K1/K2 launches per mode and local sizes, e.g. "saddle_uu[4,0]" (the
-# P1 coarse velocity block) or "scalar[10]"; keys appear when a launch
-# is prepared
+            "saddle_full_pinned": 0, "stream_saddle": 0, "stream_probe": 0,
+            **{f"vblock_{m}": 0 for m in VBLOCK_MODES}}
+plain_calls = {"saddle": 0, "scalar": 0, "stream_saddle": 0, "stream_probe": 0, "vblock": 0}
+# launches per mode and local sizes, e.g. "saddle_uu[4,0]" (the P1
+# coarse velocity block), "scalar[10]" or "vblock_full_pp[4,4]" (the
+# assembled block's rows and columns); keys appear when a launch is
+# prepared
 shape_launches = {}
 
 
@@ -130,6 +141,23 @@ def stream_saddle_plain(uu, up, pu, carry):
     lane = torch.arange(nc, device=uu.device) % LANES
     acc = uu.new_zeros(LANES).index_add_(0, lane, cell)
     return (carry.to(uu.dtype) + 1e-30 * acc).float()
+
+
+def vblock_matvec_plain(vals, col, row, x, mode, n_rows):
+    """Plain version of ``vblock_matvec``: gather x by column, one
+    batched 4x4 (or 3x1) product per block, then a segment sum by row
+    (``index_add_`` over each block's row)."""
+    c, r = col.long(), row.long()
+    if mode == "up":
+        yb = vals * x[c][:, None]
+    else:
+        n3 = 3 * n_rows
+        xb = torch.cat([x[:n3].view(-1, 3)[c], x[n3:][c][:, None]], dim=1)
+        yb = torch.einsum("kij,kj->ki", vals.view(-1, 4, 4), xb)
+    y = yb.new_zeros((n_rows, yb.shape[1])).index_add_(0, r, yb)
+    if mode == "up":
+        return y.reshape(-1)
+    return torch.cat([y[:, :3].reshape(-1), y[:, 3]])
 
 
 def stream_probe_plain(parts, w0, idx=None):
@@ -413,6 +441,117 @@ def scalar_matvec(ae, cd, x):
         return scalar_matvec_plain(ae, cd, x)
     _check(x.dim() == 1, "x must be a vector")
     return scalar_launch(ae, blocks.scalar_table(cd, ae.element_size()), x.shape[0])(x)
+
+
+# ----------------------------------------------------------------------
+# the assembled vertex-block kernel (csrc/vertex_block_matvec.cu)
+# ----------------------------------------------------------------------
+
+VBLOCK_WIDTH = {"full_pp": 16, "up": 3}  # values per block
+VBLOCK_SHAPE = {"full_pp": "4,4", "up": "3,1"}
+
+
+class _VbParams(ctypes.Structure):
+    """Mirror of ``struct VbLaunch`` in csrc/vertex_block_matvec.cu."""
+    _fields_ = [*((f, ctypes.c_void_p) for f in ("vals", "col", "row_ptr")),
+                ("n_rows", ctypes.c_longlong),
+                *((f, ctypes.c_int) for f in ("mode", "f64", "device", "grid")),
+                ("launcher", ctypes.c_void_p)]
+
+
+_vb_prepared = {}  # (mode, f64, n_rows, device) -> (grid, launcher)
+
+
+def check_vblock(vals, col, row_ptr, mode: str) -> int:
+    """Shapes and types of an assembled vertex-block operator for
+    ``mode``; raises ValueError.  Returns the row (vertex) count."""
+    _check(mode in VBLOCK_MODES, f"unknown vertex-block mode {mode!r}")
+    _check(row_ptr.dim() == 1 and row_ptr.shape[0] >= 1 and col.dim() == 1
+           and row_ptr.dtype == torch.int32 and col.dtype == torch.int32,
+           "row_ptr and col must be int32 vectors")
+    _check(vals.is_floating_point() and tuple(vals.shape) == (col.shape[0], VBLOCK_WIDTH[mode]),
+           f"mode {mode!r} needs float values of shape (n_blocks, {VBLOCK_WIDTH[mode]}), "
+           f"got {tuple(vals.shape)} for {col.shape[0]} blocks")
+    return row_ptr.shape[0] - 1
+
+
+class VBlockLaunch:
+    """One vertex-block application of ``mode`` on fixed CUDA tensors,
+    checked and prepared once.  A call reads the current stream, allocates y (the
+    kernel writes every entry), makes one ctypes call and counts the
+    launch."""
+
+    __slots__ = ("params", "keep", "dtype", "index", "x_shape", "y_len", "counter",
+                 "shape_key", "_fn", "_addr", "_lib")
+
+    def __init__(self, vals, col, row_ptr, mode: str):
+        n_rows = check_vblock(vals, col, row_ptr, mode)
+        dtype, device = vals.dtype, vals.device
+        _check(dtype in (torch.float32, torch.float64),
+               f"kernels take float32 or float64, got {dtype}")
+        _check(device.type == "cuda", f"no kernel for device {device}")
+        _check_float(vals, dtype, device, "vals")
+        for t, what in ((col, "col"), (row_ptr, "row_ptr")):
+            _check(t.device == device and t.is_contiguous(),
+                   f"{what} must be a contiguous int32 vector on {device}")
+        lib = build.load()
+        self.index = device.index if device.index is not None else torch.cuda.current_device()
+        p = _VbParams()
+        p.vals, p.col, p.row_ptr = vals.data_ptr(), col.data_ptr(), row_ptr.data_ptr()
+        p.n_rows, p.mode, p.f64 = n_rows, _MODE_ID[mode], int(dtype == torch.float64)
+        p.device = self.index
+        key = (mode, p.f64, n_rows, self.index)
+        if key not in _vb_prepared:
+            with torch.cuda.device(self.index):
+                err = lib.nupgcm_vb_prepare(ctypes.byref(p))
+            if err != 0:
+                raise RuntimeError(f"vblock_{mode}: preparing the kernel failed: "
+                                   f"{lib.nupgcm_error_string(err).decode()}")
+            _vb_prepared[key] = (p.grid, p.launcher)
+        p.grid, p.launcher = _vb_prepared[key]
+        self.params, self.keep, self.dtype = p, (vals, col, row_ptr), dtype
+        self.x_shape = (4 * n_rows if mode == "full_pp" else n_rows,)
+        self.y_len = 4 * n_rows if mode == "full_pp" else 3 * n_rows
+        self.counter = f"vblock_{mode}"
+        self.shape_key = f"{self.counter}[{VBLOCK_SHAPE[mode]}]"
+        self._fn, self._addr, self._lib = lib.nupgcm_vb_apply, ctypes.addressof(p), lib
+        shape_launches.setdefault(self.shape_key, 0)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        if (x.shape != self.x_shape or x.dtype is not self.dtype
+                or x.get_device() != self.index or not x.is_contiguous()):
+            raise ValueError(f"{self.shape_key}: x must be a contiguous {self.dtype} vector "
+                             f"of shape {self.x_shape} on cuda:{self.index}, got {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}")
+        y = x.new_empty(self.y_len)
+        err = self._fn(self._addr, x.data_ptr(), y.data_ptr(), _raw_stream(self.index))
+        if err != 0:
+            raise RuntimeError(f"{self.shape_key} launch failed: "
+                               f"{self._lib.nupgcm_error_string(err).decode()}")
+        launches[self.counter] += 1
+        shape_launches[self.shape_key] += 1
+        return y
+
+
+def vblock_matvec(vals, col, row_ptr, row, x, mode: str):
+    """y = A x for an assembled vertex-block operator (ops/assembled.py).
+
+    vals (n_blocks, 16) 4x4 blocks, rows and columns [u_x, u_y, u_z, p],
+    or (n_blocks, 3) their pressure-gradient columns; col and row
+    (n_blocks,) int32 the blocks' column and row vertices, sorted by row
+    then column; row_ptr (n_rows + 1,) int32 the rows' block offsets.
+      "full_pp": x, y = [u (3 n_rows, node-major), p (n_rows)]
+      "up":      x = p (n_rows), y = u (3 n_rows)
+    On a CUDA device this prepares the launch for one call; operators
+    that apply many times hold a ``VBlockLaunch``."""
+    _check(x.device.type in ("cpu", "cuda"), f"no kernel for device {x.device}")
+    n_rows = check_vblock(vals, col, row_ptr, mode)
+    _check(x.dim() == 1 and x.shape[0] == (4 if mode == "full_pp" else 1) * n_rows,
+           f"x of mode {mode!r} must be a vector over the {n_rows} rows")
+    if x.device.type == "cpu":
+        plain_calls["vblock"] += 1
+        return vblock_matvec_plain(vals, col, row, x, mode, n_rows)
+    return VBlockLaunch(vals, col, row_ptr, mode)(x)
 
 
 def stream_saddle(uu, up, pu, carry):

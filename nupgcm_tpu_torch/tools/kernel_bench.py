@@ -1,4 +1,5 @@
-"""K1/K2 at the model's shapes, and the model's step rate, on one card.
+"""K1/K2 and the vertex-block kernel at the model's shapes, and the
+model's step rate, on one card.
 
 For every element-matvec kernel case the model runs (the P2-P1
 inversion operator in modes "full" and "up", the P2 velocity block and
@@ -28,7 +29,22 @@ library yardstick, never used by the port):
               call's own bound (library_bound_ms) counts its matrix's
               values and indices in place of the element tensors
 
-the slice's split of K1 "full" into streaming (K3) and the rest
+The iterative coarse level applies its P1-P1 saddle ("full_pp") and
+pressure coupling ("up") through the assembled vertex-block kernel
+(``ops/assembled.py``, ``csrc/vertex_block_matvec.cu``):
+``assembled_cases`` times each beside K1 on the same operator's element
+tensors (the time before the redesign) and beside the CSR call, in
+turns (new, K1, CSR, CSR, K1, new), every reading with a cold L2: at
+the 0.87M-DoF bowl the f32 blocks (36.5 MB) fit in the H100's 50 MB L2,
+where back-to-back calls would read them at L2 speed, below the HBM
+bound, while in the step the L2 is cold (the aggregate level's inverse,
+580 MB, and the fine operators pass through it between two coarse
+applications).  Each of the three functions runs over copies of its
+inputs (``rotating``) taken in turn, enough copies that at least
+EVICT_BYTES pass through the L2 between two uses of one copy; the
+CUDA-graph replay covers whole turns.
+
+It also reads the slice's split of K1 "full" into streaming (K3) and the rest
 (pinned K1) from ``tools/profile_matvec``, the slice's steps per second
 (three windows of 10 BDF2 steps after set_b + invert) with its
 device-busy share (5 steps under the profiler, from a trace that lost
@@ -44,8 +60,10 @@ versions can be compared in one call on one card, in turns:
 It imports ``nupgcm_tpu_torch`` from ``--root`` and drives a tree
 without prepared launches through its module-level wrappers
 (``saddle_matvec`` / ``scalar_matvec``), which is how those trees'
-operators ran.  ``chip_smoke.py`` uses ``kernel_cases``, ``measure``
-and ``operator_csr`` from here.  Needs a CUDA device.
+operators ran (an older tree has no assembled cases).  ``chip_smoke.py``
+uses ``kernel_cases``, ``assembled_cases``, ``measure_case``,
+``measure_assembled`` and ``operator_csr`` from here.  Needs a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -62,6 +80,8 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory, NVIDIA data sheet
+L2_BYTES = 50 * 2**20      # H100 L2
+EVICT_BYTES = 5 * L2_BYTES  # streamed between two uses of one copy (rotating)
 F32_FLOP_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 USED = {"full": ("uu", "up", "pu"), "full_pp": ("uu", "up", "pu", "pp"),
         "uu": ("uu",), "up": ("up",)}
@@ -90,12 +110,12 @@ def kernel_cases(model, Kv_e=None):
     evo = o["M_e"] + theta * (o["Kh_e"] + (o["Kv_e"] if Kv_e is None else Kv_e))
     tables = "blk_fine" in c
 
-    def saddle(mode, label, blocks, cd_u, cd_p, key, n_nodes, n_p):
+    def saddle(mode, label, blocks, cd_u, cd_p, key, n_nodes, n_p, **kw):
         n_x = {"full": 3 * n_nodes + n_p, "full_pp": 3 * n_nodes + n_p,
                "uu": 3 * n_nodes, "up": n_p}[mode]
         return dict(entry="saddle_matvec", mode=mode, label=label, blocks=blocks,
                     cd=(cd_u, cd_p), key=key if tables else None, n_x=n_x,
-                    n_nodes=n_nodes, n_p=n_p if mode != "uu" else 0)
+                    n_nodes=n_nodes, n_p=n_p if mode != "uu" else 0, **kw)
 
     def scalar(label, ae, cd, key, n):
         return dict(entry="scalar_matvec", mode=None, label=label, blocks=(ae,), cd=(cd,),
@@ -112,12 +132,17 @@ def kernel_cases(model, Kv_e=None):
                c["cd_u"], c["cd_none"], "blk_fine", nu, 0),
     ]
     if "sc_uu" in o:
+        # K1 on the coarse saddle: DD's path, and the single device's
+        # before the assembled layout; its tables are built here (a
+        # model holds the coarse level's "uu" tables alone)
+        k1 = (kernel_tables(model, ("full_pp", "up")) if tables
+              else {"full_pp": None, "up": None})
         cases += [
             saddle("full_pp", "P1-P1 stabilized coarse saddle",
                    (o["sc_uu"], o["sc_up"], o["sc_pu"], o["sc_pp"]), c["cd_p"], c["cd_p"],
-                   "blk_coarse", nv, nv),
+                   "blk_coarse", nv, nv, tables=k1["full_pp"]),
             saddle("up", "P1-P1 coarse pressure coupling", (None, o["sc_up"], None, None),
-                   c["cd_p"], c["cd_p"], "blk_coarse", nv, nv),
+                   c["cd_p"], c["cd_p"], "blk_coarse", nv, nv, tables=k1["up"]),
             saddle("uu", "P1 coarse velocity block", (o["sc_uu"], None, None, None),
                    c["cd_p"], c["cd_none"], "blk_coarse", nv, 0),
             saddle("uu", "P1 coarse viscous smoother", (o["sc_visc_e"], None, None, None),
@@ -134,6 +159,49 @@ def kernel_cases(model, Kv_e=None):
     return cases
 
 
+def kernel_tables(model, modes):
+    """K1's block tables of the P1-P1 coarse saddle in ``modes``, in the
+    model's dtype and on its device."""
+    from nupgcm_tpu_torch.ops import blocks
+
+    item = model.ops["sc_uu"].element_size()
+    return blocks.operator_tables(model.fe.cd_p, model.fe.cd_p, modes, item, model.device)
+
+
+def assembled_cases(model):
+    """The assembled vertex-block cases of the model's step (the
+    iterative coarse level's P1-P1 saddle and its pressure coupling), as
+    ``kernel_cases``' dicts with entry "vblock_matvec", the pattern, the
+    four element tensors the values are filled from ("sc"), and in
+    "blocks" the K1 case's element tensors (the time before the
+    redesign, and the CSR yardstick's operator).  Empty where the model
+    (or the tree) has no such level."""
+    c, o = model.const, model.ops
+    if "vblk_coarse" not in c or "sc_uu" not in o:
+        return []
+    nv = model.fe.spaces.p_space.ndof
+    sc = tuple(o[k] for k in ("sc_uu", "sc_up", "sc_pu", "sc_pp"))
+
+    def case(mode, label, blocks):
+        return dict(entry="vblock_matvec", mode=mode, label=label, pattern=c["vblk_coarse"],
+                    sc=sc, blocks=blocks, cd=(c["cd_p"], c["cd_p"]),
+                    n_x=4 * nv if mode == "full_pp" else nv, n_nodes=nv, n_p=nv)
+
+    return [case("full_pp", "P1-P1 coarse saddle, assembled", sc),
+            case("up", "P1-P1 coarse pressure coupling, assembled", (None, sc[1], None, None))]
+
+
+def vblock_values(case, dtype):
+    """(values, pattern) of an assembled case in ``dtype``: the blocks
+    ("full_pp") or their pressure-gradient columns ("up")."""
+    from nupgcm_tpu_torch.ops.assembled import AssembledSaddle
+
+    pat = case["pattern"]
+    op = AssembledSaddle(pat, case["cd"][0], dtype).fill(
+        *(t.to(dtype).contiguous() for t in case["sc"]))
+    return (op.vals if case["mode"] == "full_pp" else op.up_vals), pat
+
+
 def case_fns(model, K, case, dtype):
     """(kernel fn, plain fn, x) of a case in ``dtype``: the tree's own
     launch path (a prepared launch over the model's block tables for
@@ -144,6 +212,12 @@ def case_fns(model, K, case, dtype):
     cd = case["cd"]
     x = torch.as_tensor(np.random.default_rng(0).standard_normal(case["n_x"]), dtype=dtype,
                         device=model.device)
+    if case["entry"] == "vblock_matvec":
+        vals, pat = vblock_values(case, dtype)
+        mode = case["mode"]
+        launch = K.VBlockLaunch(vals, pat.col, pat.row_ptr, mode)
+        return ((lambda: launch(x)),
+                (lambda: K.vblock_matvec_plain(vals, pat.col, pat.row, x, mode, pat.n_rows)), x)
     if case["mode"] is None:
         plain = lambda: K.scalar_matvec_plain(blocks[0], cd[0], x)
         if case["key"] is None:
@@ -259,26 +333,43 @@ def _trace(fn, k):
         return _without_pad(trace_summary(path))
 
 
-def device_ms(fn, n=20, tries=5):
-    """Device busy ms per call over a profiler trace of ``n`` calls.  A
-    trace that missed calls would read too little busy time, so a trace
-    is kept only if every launch of its calls found its device event
-    (``_trace``) and it holds the events that traces of one and two
-    calls (E1, E2: the most of ``tries`` each) say ``n`` calls make,
-    E1 + (n - 1)(E2 - E1); E1 may hold events a trace makes once,
-    whatever its length.  None if no try held them.  Late in a long
-    process a profiler session loses device events from the start of
-    its window (a few, or all of them) in some sessions and not in
-    others: the pad takes those losses, and five tries of each kind
-    leave few cases unmeasured."""
+DEVICE_READS = 3   # complete traces whose median device_ms reads
+SPREAD_BAR = 1.15  # one device_ms's readings further apart than this go to SPREADS
+SPREADS = []       # (median, readings) of each such device_ms, for the record
+
+
+def device_ms(fn, n=20, tries=5, reads=DEVICE_READS):
+    """Device busy ms per call: the median over ``reads`` profiler traces
+    of ``n`` calls.  A trace that missed calls would read too little
+    busy time, so a trace is kept only if every launch of its calls
+    found its device event (``_trace``) and it holds the events that
+    traces of one and two calls (E1, E2: the most of ``tries`` each) say
+    ``n`` calls make, E1 + (n - 1)(E2 - E1); E1 may hold events a trace
+    makes once, whatever its length.  Tracing stops at ``reads`` kept
+    traces or ``tries`` refused ones; None if none was kept (the median
+    of the kept ones otherwise).  Late in a long process a profiler
+    session loses device events from the start of its window (a few, or
+    all of them) in some sessions and not in others: the pad takes
+    those losses.  Traces that held every call can still read far too
+    little (on an NVIDIA H100: the vertex-block kernel 27% under its
+    CUDA-graph replay, K1 14% under the time its bytes need): the median
+    leaves out one such trace of three, and readings that spread beyond
+    SPREAD_BAR are kept in SPREADS."""
     e1, e2 = (max(_trace(fn, k)[1] for _ in range(tries)) for k in (1, 2))
     if e2 <= e1:
         return None
-    for _ in range(tries):
+    got, refused = [], 0
+    while len(got) < reads and refused < tries:
         busy, events = _trace(fn, n)
         if events >= e1 + (n - 1) * (e2 - e1):
-            return busy / n / 1e3
-    return None
+            got.append(busy / n / 1e3)
+        else:
+            refused += 1
+    if not got:
+        return None
+    if max(got) > SPREAD_BAR * min(got):
+        SPREADS.append((statistics.median(got), got))
+    return statistics.median(got)
 
 
 def measure_case(model, K, case, log=print, tag="kernels"):
@@ -332,8 +423,101 @@ def measure_case(model, K, case, log=print, tag="kernels"):
     return rec
 
 
+def rotating(make, nbytes_one):
+    """A function that calls, in turn, each of n functions ``make()``
+    builds (each over its own copy of the inputs), with n such that at
+    least EVICT_BYTES pass between two calls of one copy: every call
+    finds its inputs out of the L2.  ``.copies`` is n."""
+    n = max(1, -(-EVICT_BYTES // max(1, nbytes_one)))
+    fns = [make() for _ in range(n)]
+    turn = [0]
+
+    def call():
+        turn[0] += 1
+        return fns[turn[0] % n]()
+
+    call.copies = n
+    return call
+
+
+def measure_assembled(model, K, case, log=print, tag="kernels"):
+    """f32 times of an assembled case: the vertex-block kernel, K1 on the
+    same operator's element tensors and the CSR call, in turns (new, K1,
+    CSR, CSR, K1, new), each over rotating copies of its inputs (a cold
+    L2 on every call); the CUDA-graph replays of the new kernel and K1;
+    the bounds; the plain time."""
+    mode, nv = case["mode"], case["n_nodes"]
+    kfn, pfn, x = case_fns(model, K, case, torch.float32)
+    vals, pat = vblock_values(case, torch.float32)
+    blocks = tuple(None if t is None else t.float().contiguous() for t in case["blocks"])
+    csr = operator_csr(case, blocks, case["n_x"])
+    tables = kernel_tables(model, (mode,))[mode]
+    y0 = pfn()
+    scale = float(y0.abs().max())
+    err = float((kfn() - y0).abs().max())
+    lib_err = float((torch.sparse.mm(csr, x[:, None])[:, 0] - y0).abs().max())
+    new_bytes = nbytes(vals, pat.col, pat.row_ptr)
+
+    def make_new():
+        launch = K.VBlockLaunch(vals.clone(), pat.col.clone(), pat.row_ptr.clone(), mode)
+        return lambda: launch(x)
+
+    def make_k1():
+        launch = K.saddle_launch(*(None if t is None else t.clone() for t in blocks), tables,
+                                 mode, nv, case["n_p"])
+        return lambda: launch(x)
+
+    def make_csr():
+        m = torch.sparse_csr_tensor(csr.crow_indices().clone(), csr.col_indices().clone(),
+                                    csr.values().clone(), csr.shape)
+        return lambda: torch.sparse.mm(m, x[:, None])
+
+    fns = (rotating(make_new, new_bytes), rotating(make_k1, nbytes(*blocks)),
+           rotating(make_csr, nbytes(csr.values(), csr.col_indices(), csr.crow_indices())))
+    order = (0, 1, 2, 2, 1, 0)
+    turns = [median_ms(fns[i]) for i in order]
+    dev = [device_ms(fns[i]) for i in order]
+    hus = [host_us(fns[i]) for i in order]
+    graph = lambda f: graph_ms(f, calls=f.copies * -(-20 // f.copies))
+    g_ms = [graph(f) for f in fns[:2]]
+
+    def mean(v, i):  # of the two turns of function i that measured something
+        got = [v[t] for t, j in enumerate(order) if j == i and v[t] is not None]
+        return sum(got) / len(got) if got else None
+
+    out_len = 3 * nv if mode == "up" else case["n_x"]
+    y_bytes = out_len * vals.element_size()
+    b_ms, b_by = bound(new_bytes + nbytes(x) + y_bytes, 2 * vals.numel())
+    k1_ms, _ = bound(nbytes(*blocks, *case["cd"], x) + y_bytes,
+                     2 * sum(t.numel() for t in blocks if t is not None))
+    lib_b_ms, _ = bound(nbytes(csr.values(), csr.col_indices(), csr.crow_indices(), x)
+                        + y_bytes, 2 * csr.values().numel())
+    rec = dict(entry=case["entry"], mode=mode, label=case["label"],
+               shape=[4, 4] if mode == "full_pp" else [3, 1], nc=pat.n_blocks,
+               n_blocks=pat.n_blocks, max_abs_err=err, rel_err=err / scale,
+               lib_rel_err=lib_err / scale, ms=mean(turns, 0), library_ms=mean(turns, 2),
+               device_ms=mean(dev, 0), graph_ms=g_ms[0], library_device_ms=mean(dev, 2),
+               host_us=mean(hus, 0), library_host_us=mean(hus, 2), plain_ms=median_ms(pfn),
+               bound_ms=b_ms, bound_by=b_by, library_bound_ms=lib_b_ms,
+               nnz=int(csr.values().numel()), k1_ms=mean(turns, 1), k1_device_ms=mean(dev, 1),
+               k1_graph_ms=g_ms[1], k1_bound_ms=k1_ms, copies=[f.copies for f in fns],
+               cold_l2=True)
+    fmt = lambda v: "n/m" if v is None else f"{v:.4f}"
+    log(f"[{tag}] vblock_matvec[{mode}] {rec['label']:34s} f32, cold L2 (copies "
+        f"{rec['copies']}): kernel {fmt(rec['ms'])} ms (device {fmt(rec['device_ms'])}, graph "
+        f"replay {fmt(g_ms[0])}, host {rec['host_us']:.1f} us), K1 on the element tensors "
+        f"{fmt(rec['k1_ms'])} ms (device {fmt(rec['k1_device_ms'])}, graph replay "
+        f"{fmt(g_ms[1])}; its bound {k1_ms:.4f}), CSR {fmt(rec['library_ms'])} ms (device "
+        f"{fmt(rec['library_device_ms'])}; its bound {lib_b_ms:.4f} ms), plain "
+        f"{rec['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); {pat.n_blocks} blocks; err "
+        f"{rec['rel_err']:.1e} max|y|")
+    del csr, fns
+    return rec
+
+
 def measure(model, K, Kv_e=None, log=print, tag="kernels"):
-    return [measure_case(model, K, case, log, tag) for case in kernel_cases(model, Kv_e)]
+    recs = [measure_case(model, K, case, log, tag) for case in kernel_cases(model, Kv_e)]
+    return recs + [measure_assembled(model, K, case, log, tag) for case in assembled_cases(model)]
 
 
 def step_rate(model, state, n=10):

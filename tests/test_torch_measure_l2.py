@@ -152,6 +152,30 @@ def test_device_ms_acceptance_rule(monkeypatch, traces, expect):
     assert got == pytest.approx(expect) if expect is not None else got is None
 
 
+@pytest.mark.parametrize("reads, expect, spread", [
+    ([(200.0, 41), (200.0, 41), (200.0, 41)], 0.01, False),
+    # one complete trace that reads far too little: the median leaves it out
+    ([(200.0, 41), (120.0, 41), (204.0, 41)], 0.01, True),
+    ([(120.0, 41), (150.0, 30), (200.0, 41), (10.0, 2), (202.0, 41)], 0.01, True),
+    # refused traces end the tracing after ``tries``: the median of the kept
+    ([(200.0, 41)] + [(150.0, 30)] * 5, 0.01, False),
+])
+def test_device_ms_reads_the_median_of_three_complete_traces(monkeypatch, reads, expect,
+                                                             spread):
+    """``kernel_bench.device_ms`` traces until DEVICE_READS traces of n
+    calls held every call (or ``tries`` did not) and reads their
+    median, so that one complete trace that reads too little does not
+    set the time; readings further apart than SPREAD_BAR are recorded."""
+    from nupgcm_tpu_torch.tools import kernel_bench as kb
+
+    seq = {1: iter([(10.0, 3)] * 5), 2: iter([(20.0, 5)] * 5), 20: iter(reads)}
+    monkeypatch.setattr(kb, "_trace", lambda fn, k: next(seq[k]))
+    monkeypatch.setattr(kb, "SPREADS", [])
+    assert kb.device_ms(lambda: None) == pytest.approx(expect)
+    assert bool(kb.SPREADS) is spread
+    assert next(seq[20], None) is None  # no trace beyond those it needed
+
+
 @pytest.mark.parametrize("lost, expect", [
     ([[64, 65], [0, 1, 2], [70]], [(2, 0), (0, 3)]),  # the pad may lose its events
     ([[3, 64]] * 5, [(1, 1)] * 5),                    # every try lost some: not measured

@@ -255,7 +255,7 @@ def test_chip_smoke_fails_without_cuda_or_without_the_repo(tmp_path):
 
 
 @pytest.mark.parametrize("n_traces, expect", [
-    ([(150.0, 30), (200.0, 41)], 0.01),        # the first trace missed calls
+    ([(150.0, 30)] + [(200.0, 41)] * 3, 0.01),  # the first trace missed calls
     ([(150.0, 30), (140.0, 28), (10.0, 2), (150.0, 30), (140.0, 28)], None),  # every try did
 ])
 def test_device_ms_keeps_no_trace_that_missed_calls(monkeypatch, n_traces, expect):
