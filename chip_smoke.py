@@ -7,7 +7,7 @@ Phases (any failed check raises, and the script exits non-zero):
 
   1. device: needs CUDA; prints the card's name and power limit.
   2. build: compiles the CUDA kernels from csrc/ (the element matvec,
-     the assembled vertex-block matvec, the streaming probes).
+     the assembled block matvec, the streaming probes).
   3. kernels vs plain: every kernel case of the h = 0.08 bowl3D model
      (each mode at each local size the step runs: the P2-P1 operator,
      the P2 velocity block and viscous smoother, the P1-P1 coarse
@@ -21,27 +21,32 @@ Phases (any failed check raises, and the script exits non-zero):
      device time (profiler busy time over 20 calls, and CUDA events
      around a CUDA-graph replay of 20 calls), host µs per call
      (1,000 calls before the synchronise) and the bound.
-     The iterative coarse level's two assembled vertex-block cases
-     (vblock_matvec: the P1-P1 saddle "full_pp" and its pressure
-     coupling "up", ops/assembled.py) are held against their plain
-     version at the same bars, with a second application bitwise equal
-     to the first (the kernel has no atomics), and timed with a cold L2
-     beside K1 on the same operator's element tensors and the CSR call
+     The assembled block cases (vblock_matvec, ops/assembled.py): the
+     iterative coarse level's P1-P1 saddle "full_pp" and its pressure
+     coupling "up", its P1 vector velocity block and viscous smoother
+     "uu" (3x3 blocks; the two-grid's element coarse level in 9c), and
+     the P2-P1 pressure coupling "up" (P2 nodes x vertices) are held
+     against their plain version at the same bars, with a second
+     application bitwise equal to the first (the kernel has no
+     atomics), and timed with a cold L2 beside K1 on the same
+     operator's element tensors and the CSR call
      (kernel_bench.measure_assembled).
   3c. edge cases: every phase-3 case with the cells in a shuffled order
      (the widest block dof lists) and with blocks of 12 or 20 cells (a
      ragged last block), against the plain versions at the phase-3
-     bars; the vertex-block cases on the shuffled cells (their pattern
-     rebuilt from the shuffled dof table); after phase 5 the same cases
-     of the 2D bowl2D model (P2-P1 triangles), and of bowl2D on the
-     iterative coarse level (coarse_dense_max lowered: the vertex-block
-     cases on P1 triangles).
+     bars; the assembled cases on the shuffled cells (their pattern
+     rebuilt from the shuffled dof tables); after phase 5 the same cases
+     of the 2D bowl2D model (P2-P1 triangles: the assembled P2-P1
+     coupling on [6,3]), and of bowl2D on the iterative coarse level
+     (coarse_dense_max lowered: the assembled coarse cases on P1
+     triangles, [3,3]).
   4. slice: PGModel on bowl3D(0.08, 0.5, nz=9) in f32 (the bench.py
      mixing configuration): set_b, invert, 10 BDF2 steps.  Every state
      is finite, every solve stays under its iteration cap, every kernel
      of the path launched and no plain version ran; the coarse level
-     went through the vertex-block kernel ("full_pp" and "up") and K1
-     launched no P1-P1 "full_pp" or "up".
+     and the P2-P1 coupling went through the assembled block kernel
+     ("full_pp", "up" and "uu") and K1 launched no P1-P1 "full_pp" or
+     "up", no P1 vector "uu" and no P2-P1 "up" (check_path).
   3b. probes vs plain: K3 stream_saddle and K1 pinned on the slice's
      element tensors in f32 and f64, K4 stream_probe in f32 on
      profile_stream's shapes.  Bars: K1 pinned as phase 3; K3 and K4
@@ -104,7 +109,8 @@ Phases (any failed check raises, and the script exits non-zero):
      9c. the u-block two-grid (saddle_coarse=False, twogrid=True), f32:
          on the slice mesh bowl3D(0.08, 0.5, nz=9) the element coarse
          branch with inner CG (3 n_vertices > coarse_dense_max), invert
-         + 5 steps, the P1 vector block (saddle_uu[4,0]) launched; on
+         + 5 steps, the P1 vector block on assembled blocks
+         (vblock_uu[4,4]) launched and K1's (saddle_uu[4,0]) not; on
          bowl3D(0.25, 0.5, nz=4) the dense Cholesky branch, invert + 3
          steps.
      9d. channel and analysis: the channel_spinup example's model at its
@@ -165,9 +171,9 @@ Phases (any failed check raises, and the script exits non-zero):
           invert s and FGMRES count, every step's CG and FGMRES counts
           and residuals, steps/s, peak memory and launches per step by
           mode and local size.  No solve at its cap, finite residuals
-          and max|b|, every kernel of the path launched (the vertex-block
-          kernel on the coarse level, no K1 P1-P1 "full_pp" or "up"),
-          no plain call.
+          and max|b|, every kernel of the path launched (the assembled
+          block kernel on the coarse level and the P2-P1 coupling, as
+          phase 4b checks), no plain call.
      11b. retune(saddle_coarse_inner=0) on the same model (mode "k0"),
           5 steps, the same prints and checks; where 11a already ran at
           k = 0 (the default with the aggregate level and the Chebyshev
@@ -176,7 +182,7 @@ Phases (any failed check raises, and the script exits non-zero):
           that lost no device event of the steps (kernel_bench.busy_share:
           a pad of spin kernels opens the trace; up to 5 tries, "not
           measured" otherwise), beside the wall of 3 unprofiled steps.
-     11c. every K1/K2 and vertex-block case of that model against its
+     11c. every K1/K2 and assembled block case of that model against its
           plain version at the phase-3 bars, timed as phase 3; every case
           reads a device time at or above its bound.
      11d. on the slice model: FEData.plan_inv assembles elem_inversion
@@ -253,9 +259,12 @@ Phases run in the order 1, 2, 4a (build the slice), 3, 3c, 3b, 4b
 The last three lines are the card's name and power limit, a JSON object
 {"kernels": [...]} (each entry's "launches" come from the path named in
 its "path": 4b's slice steps, 6's tools for the probes, or 10b's DD
-steps for K1's "full_pp", which only DD runs now; K1/K2 and vertex-block
-entries also carry "dd_launches", their launches in 10b's DD steps, and
-"bowl_launches", in 11a's run), and {"ok": true, "device": {...}}.
+steps for K1's "full_pp" and "up", which only DD runs now; an assembled
+entry counts its own pattern's launches, e.g. vblock_up[10,4] for the
+P2-P1 coupling against vblock_up[4,4] for the coarse level's; K1/K2
+and assembled entries also carry "dd_launches", their launches in 10b's
+DD steps, and "bowl_launches", in 11a's run), and {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
@@ -285,13 +294,19 @@ SOURCES = {"saddle_matvec": "nupgcm_tpu_torch/csrc/element_matvec.cu",
            "stream_probe": "nupgcm_tpu_torch/csrc/stream_probe.cu"}
 BARS = {"float32": 2e-6, "float64": 1e-12}
 RESUME_BAR = 1e-4          # phase 8a (f64), relative to max|u| and max|b|
-# the single-device step: the iterative coarse level's saddle and coupling
-# through the vertex-block kernel; DD keeps K1 "full_pp" on its shards
-STEP_COUNTERS = ("saddle_full", "saddle_uu", "saddle_up", "scalar", "vblock_full_pp",
-                 "vblock_up")
+# the single-device step: the iterative coarse level's saddle and coupling,
+# the coarse P1 vector velocity blocks and the P2-P1 coupling through the
+# assembled block kernel; DD keeps K1 for them on its shards
+STEP_COUNTERS = ("saddle_full", "saddle_uu", "scalar", "vblock_full_pp", "vblock_up",
+                 "vblock_uu")
 INVERT_COUNTERS = tuple(k for k in STEP_COUNTERS if k != "scalar")
 DD_COUNTERS = ("saddle_full", "saddle_full_pp", "saddle_uu", "saddle_up", "scalar")
-COARSE_K1 = ("saddle_up[4,4]", "saddle_up[3,3]")  # K1's P1-P1 "up" shapes
+# K1's shapes of the operators the single device applies from assembled
+# blocks (with every "saddle_full_pp" shape): the P1-P1 and P2-P1 "up",
+# the P1 vector "uu", in tets and triangles
+ASSEMBLED_K1 = ("saddle_up[4,4]", "saddle_up[3,3]", "saddle_up[10,4]", "saddle_up[6,3]",
+                "saddle_uu[4,0]", "saddle_uu[3,0]")
+P2P1_COUPLING = ("vblock_up[10,4]", "vblock_up[6,3]")  # the assembled P2-P1 "up"
 # 9b, FE rel-L2 (a squared-norm ratio, so about 3e-5 relative) of f32
 # against the f64 golden; f32 reads about 1e-14 (u) and 1e-16 (b)
 SPHERE_BAR = 1e-9
@@ -361,14 +376,27 @@ def phase_kernels(model, K, card_name, tag="kernels", Kv_e=None):
 
 
 def case_name(case):
-    return case["entry"] + ("" if case["mode"] is None else f"[{case['mode']}]")
+    return case.get("name") or (case["entry"]
+                                + ("" if case["mode"] is None else f"[{case['mode']}]"))
 
 
 def counter_of(case):
-    """The ``kernels.launches`` key of a kernel case."""
+    """The ``counts`` key of a kernel case: its ``kernels.launches`` key,
+    or for an assembled case its pattern's ``shape_launches`` key (the
+    P2-P1 coupling's "vblock_up[10,4]", the coarse level's
+    "vblock_up[4,4]")."""
     if case["mode"] is None:
         return "scalar"
-    return f"{'vblock' if case['entry'] == 'vblock_matvec' else 'saddle'}_{case['mode']}"
+    if case["entry"] == "vblock_matvec":
+        return "vblock_{}[{},{}]".format(case["mode"], *case["pattern"].sizes)
+    return f"saddle_{case['mode']}"
+
+
+def counts(K):
+    """The launches since the last reset, by kernel and mode
+    (``kernels.launches``) and by mode and local sizes
+    (``kernels.shape_launches``), in one dict."""
+    return {**K.launches, **K.shape_launches}
 
 
 def check_device(rec, what):
@@ -436,7 +464,6 @@ def phase_edges(model, K, tag):
     import torch
 
     from nupgcm_tpu_torch.ops import blocks
-    from nupgcm_tpu_torch.ops.assembled import vertex_pattern
     from nupgcm_tpu_torch.tools import kernel_bench as kb
 
     nc = model.const["cd_u"].shape[0]
@@ -444,9 +471,7 @@ def phase_edges(model, K, tag):
     ragged = 12 if nc % 12 else 20
     check(nc % ragged != 0, f"{tag}: blocks of {ragged} cells divide the cell count")
     for case in kb.assembled_cases(model):  # no cell blocks: the shuffled order alone
-        c = dict(case, label=f"{case['label']}, shuffled",
-                 sc=tuple(t[perm] for t in case["sc"]),
-                 pattern=vertex_pattern(case["cd"][0][perm], case["n_nodes"]))
+        c = dict(case, label=f"{case['label']}, shuffled", perm=perm)
         check_case(model, K, c, case_name(case), tag)
     for case in kb.kernel_cases(model):
         name = case_name(case)
@@ -646,20 +671,29 @@ def check_kernels(model, K, tag):
 
 def check_path(model, K, tag, counters=STEP_COUNTERS):
     """The counts since the last reset: every kernel of ``counters`` on
-    the model's path launched (the coarse level's where the model has
-    the iterative one) and no plain version ran; on the single-device
-    path (``counters`` with the vertex-block kernel) K1 ran no P1-P1
-    "full_pp" or "up".  Returns the launches."""
-    launches, plain = dict(K.launches), dict(K.plain_calls)
-    coarse = ("saddle_full_pp", "vblock_full_pp", "vblock_up")
-    missing = [k for k in counters if not launches[k]
-               and not (k in coarse and "sc_uu" not in model.ops)]
+    the model's path launched (the iterative coarse level's where the
+    model has it, the P1 vector blocks' where it has a coarse velocity
+    level, the P2-P1 coupling's where the preconditioner is
+    block-triangular) and no plain version ran; on the single-device
+    path (``counters`` with the assembled block kernel) the P2-P1
+    coupling launched from its assembled blocks, and K1 ran none of the
+    operators the model applies from them (ASSEMBLED_K1).  Returns the
+    launches (``counts``)."""
+    launches, plain = counts(K), dict(K.plain_calls)
+    ops = model.ops
+    needed = {"saddle_full_pp": "sc_uu" in ops, "vblock_full_pp": "sc_uu" in ops,
+              "vblock_uu": "sc_uu" in ops or "coarse_e" in ops,
+              "vblock_up": "sc_uu" in ops or model.triangular}
+    missing = [k for k in counters if not launches[k] and needed.get(k, True)]
     check(not missing, f"{tag}: {missing} never launched")
     check(all(v == 0 for v in plain.values()), f"{tag}: a plain version ran on the card: {plain}")
-    if "vblock_full_pp" in counters:
+    if "vblock_up" in counters:
+        check(not model.triangular or any(launches.get(k) for k in P2P1_COUPLING),
+              f"{tag}: the P2-P1 coupling never launched from its assembled blocks")
         k1 = {k: v for k, v in K.shape_launches.items()
-              if v and (k.startswith("saddle_full_pp") or k in COARSE_K1)}
-        check(not k1, f"{tag}: K1 ran the P1-P1 coarse operator: {k1}")
+              if v and (k.startswith("saddle_full_pp") or k in ASSEMBLED_K1)}
+        check(not k1, f"{tag}: K1 ran an operator the model applies from assembled blocks: "
+              f"{k1}")
     return launches
 
 
@@ -987,8 +1021,8 @@ def phase_twogrid(K, card_name):
         check(bool(torch.isfinite(state.u).all()), f"{tag}: invert gave a non-finite flow")
         state, _ = run_checked(model, state, K, tag, card_name, n_info=0, max_steps=n_steps)
         check(state.step == n_steps, f"{tag}: the run stopped early")
-        p1_uu = K.shape_launches.get("saddle_uu[4,0]", 0)
-        print(f"[{tag}] P1 vector-block launches (saddle_uu[4,0]) {p1_uu}; peak device "
+        p1_uu = K.shape_launches.get("vblock_uu[4,4]", 0)
+        print(f"[{tag}] P1 vector-block launches (vblock_uu[4,4]) {p1_uu}; peak device "
               f"memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB", flush=True)
         check((p1_uu > 0) == (branch != "dense coarse"),
               f"{tag}: the P1 vector block launched {p1_uu} times")
@@ -1377,7 +1411,8 @@ def phase_bowl(K, card_name):
           f"preconditioner {info['preconditioner']}, inner_method {model.inner_method}, "
           f"saddle_coarse_inner {model.saddle_coarse_inner}; build {info['build_s']:.2f} s = "
           f"mesh {info['mesh_s']:.2f} + Spaces/FEData {info['fedata_s']:.2f} + operators "
-          f"{info['operators_s']:.2f} + aggregate level {info['aggregate_s']:.2f} (of it the "
+          f"{info['operators_s']:.2f} (of them the assembled operators' patterns "
+          f"{info['patterns_s']:.3f}) + aggregate level {info['aggregate_s']:.2f} (of it the "
           f"host aggregation {info['aggregation_s']:.2f}); peak "
           f"{info['build_peak_mib']:.1f} MiB ({card_name})", flush=True)
     check(info["preconditioner"] == "iterative saddle coarse + L2 aggregate level",
@@ -1684,7 +1719,7 @@ def main():
         stats.append(aux)
     torch.cuda.synchronize()
     t_steps = time.perf_counter() - t0
-    launches = dict(K.launches)
+    launches = counts(K)
     plain = dict(K.plain_calls)
     for i, aux in enumerate(stats):
         print(f"[slice] step {i + 1}: evo_iters {aux['evo_iters']} (res {aux['evo_res']:.2e}), "
@@ -1696,18 +1731,18 @@ def main():
         check(bool(torch.isfinite(getattr(state, f)).all()), f"slice: non-finite {f}")
     peak = torch.cuda.max_memory_allocated()
     print(f"[slice] 10 steps in {t_steps:.3f} s = {10 / t_steps:.3f} steps/s; "
-          f"peak device memory {peak / 2**20:.1f} MiB; launches {launches} = per step "
-          f"{ {k: v / 10 for k, v in launches.items() if v} }; plain calls {plain} "
+          f"peak device memory {peak / 2**20:.1f} MiB; launches {dict(K.launches)} = per "
+          f"step { {k: v / 10 for k, v in K.launches.items() if v} }; plain calls {plain} "
           f"({name_limit})", flush=True)
     print(f"[slice] launches per step by mode and local size "
           f"{ {k: v / 10 for k, v in K.shape_launches.items() if v} }", flush=True)
     check(all(launches[k] > 0 for k in STEP_COUNTERS),
           f"a kernel of the path never launched: {launches}")
     check(all(n == 0 for n in plain.values()), f"a plain version ran on the card: {plain}")
-    check_path(model, K, "slice")  # and K1 ran no P1-P1 coarse case
+    check_path(model, K, "slice")  # and K1 ran none of the assembled operators
 
     for r in results.values():
-        r["launches"], r["path"] = launches[r["counter"]], "4b slice steps"
+        r["launches"], r["path"] = launches.get(r["counter"], 0), "4b slice steps"
 
     # 6. the measurement tools, 7. the trace
     tool_launches = phase_tools(model, K, name_limit)
@@ -1753,9 +1788,9 @@ def main():
     phase_precision(golden_state, name_limit)
 
     check("jax" not in sys.modules, "JAX was imported")
-    for r in results.values():  # K1 "full_pp": DD's path alone now
+    for r in results.values():  # K1 "full_pp" and "up": DD's path alone now
         if not r["launches"]:
-            r["launches"], r["path"] = dd_launches[r["counter"]], "10b DD steps"
+            r["launches"], r["path"] = dd_launches.get(r["counter"], 0), "10b DD steps"
     kernels = [
         {"name": r["name"], "route": "cuda", "source": SOURCES[r["entry"]],
          "replaces": REPLACES[r["entry"]], "launches": r["launches"], "path": r["path"],
@@ -1765,8 +1800,8 @@ def main():
          "library_device_ms": r["library_device_ms"]}
         for r in (*results.values(), *probes.values())]
     for entry, r in zip(kernels, results.values()):  # K1/K2 first: their DD, 11a launches
-        entry["dd_launches"] = dd_launches[r["counter"]]
-        entry["bowl_launches"] = bowl_launches[r["counter"]]
+        entry["dd_launches"] = dd_launches.get(r["counter"], 0)
+        entry["bowl_launches"] = bowl_launches.get(r["counter"], 0)
     check(all(e["launches"] > 0 for e in kernels), f"a kernel never launched on its path: "
           f"{[(e['name'], e['path']) for e in kernels if not e['launches']]}")
     from nupgcm_tpu_torch.tools import kernel_bench as kb

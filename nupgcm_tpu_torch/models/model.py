@@ -25,11 +25,16 @@ rebuilds the inversion blocks from the current b every 10 steps
 preconditioner on the caller's cadence.
 
 Preconditioner branches: the P1-P1 saddle-coarse level (the default;
-dense inverse on small meshes; on large ones iterative, its operator
+dense inverse on small meshes; on large ones iterative, its operators
 applied from assembled vertex blocks, with an aggregate second level)
 or, with ``saddle_coarse=False, twogrid=True``, the u-block two-grid (a
 P1-vertex coarse level of the velocity block: dense inverse on small
-meshes, inner CG on the element-local P1 operator on large ones).
+meshes, inner CG on the assembled P1 operator on large ones).  The
+block-triangular preconditioner applies the P2-P1 pressure coupling
+from its assembled blocks (P2 nodes x vertices).  The model holds one
+assembled operator per element tensor it applies so (``_held``, and
+``_sc_op`` for the coarse saddle), refilled in place wherever the
+tensor is written.
 """
 
 from __future__ import annotations
@@ -45,7 +50,7 @@ import torch
 from ..fem import assembly as asm
 from ..fem.spaces import _eval_coeff
 from ..ops import blocks, build
-from ..ops.assembled import AssembledSaddle, vertex_pattern
+from ..ops.assembled import AssembledBlocks, AssembledSaddle, vertex_pattern
 from ..ops.element import ElementOperator, SaddleOperator
 from ..ops.sparse import MaskedOperator
 from ..solvers.cg import cg
@@ -307,7 +312,8 @@ class PGModel:
         self.matmul_precision = matmul_precision
 
         # seconds of the build's parts, their device work included (a
-        # CUDA model synchronises before each reading): constants,
+        # CUDA model synchronises before each reading): constants (within
+        # them the assembled operators' patterns, "patterns"),
         # operators, and within operators the coarse saddle matrix's
         # assembly and inverse ("saddle_coarse" or "aggregate_level",
         # which a refresh updates), within the latter the host
@@ -344,11 +350,20 @@ class PGModel:
 
     @ops.setter
     def ops(self, ops: dict):
-        # the iterative coarse level's assembled blocks follow the dict's
-        # element tensors (a dict set from outside, a refresh's result)
+        # the assembled operators follow the dict's element tensors (a
+        # dict set from outside, a refresh's result)
         self._ops = ops
         if hasattr(self, "_sc_op") and "sc_uu" in ops:
             self._sc_op.fill(*(ops[k] for k in ("sc_uu", "sc_up", "sc_pu", "sc_pp")))
+        self._refill(ops)
+
+    def _refill(self, ops: dict, keys=None):
+        """Refill the held assembled operators (``self._held``, one per
+        element tensor of ``ops``) from ``ops``' tensors, those of
+        ``keys`` or all, in place."""
+        for k, op in self._held.items():
+            if k in ops and (keys is None or k in keys):
+                op.fill(ops[k])
 
     def _sync(self):
         """Wait for the work queued on a CUDA model's device (so that the
@@ -387,20 +402,32 @@ class PGModel:
         # block tables of the element-matvec kernel (ops/blocks.py), one
         # per operator family; the per-step operators reuse them
         item = torch.empty((), dtype=self.dtype).element_size()
-        c["blk_fine"] = blocks.operator_tables(fe.cd_u, fe.cd_p, ("full", "up", "uu"), item,
+        c["blk_fine"] = blocks.operator_tables(fe.cd_u, fe.cd_p, ("full", "uu"), item,
                                                self.device)
-        # the P1 coarse velocity operators: the saddle-coarse level's
-        # visc surrogate and uu block, or the two-grid's vector-P1
-        # velocity block (element branch)
-        c["blk_coarse"] = (blocks.operator_tables(fe.cd_p, fe.cd_p, ("uu",), item, self.device)
-                           if self.saddle_coarse or (self.twogrid and not self.coarse_dense)
-                           else None)
-        # the iterative saddle-coarse level applies its saddle operator
-        # from assembled vertex blocks (ops/assembled.py): the pattern
-        # once per mesh, the blocks refilled from the element tensors
-        if self.saddle_coarse and not self.saddle_coarse_dense:
+        # assembled operators (ops/assembled.py), one per element tensor
+        # of ``ops``: the pattern once per mesh, the blocks refilled from
+        # the tensors wherever they are written (``_refill``).  The P1
+        # vector velocity operators of the coarse level (the iterative
+        # saddle coarse level's uu block and visc surrogate, or the
+        # two-grid's element coarse level) and the iterative saddle
+        # coarse operator on the vertex pattern; the P2-P1 pressure
+        # coupling of the block-triangular preconditioner on P2 nodes x
+        # vertices.  build_seconds["patterns"]: the patterns' seconds
+        self._sync()
+        t0 = time.perf_counter()
+        self._held = {}
+        iterative_sc = self.saddle_coarse and not self.saddle_coarse_dense
+        if iterative_sc or (self.twogrid and not self.coarse_dense):
             c["vblk_coarse"] = vertex_pattern(c["cd_p"], sp.p_space.ndof)
+            for k in ("sc_uu", "sc_visc_e") if iterative_sc else ("coarse_e",):
+                self._held[k] = AssembledBlocks(c["vblk_coarse"], "uu", self.dtype, c["cd_p"])
+        if iterative_sc:
             self._sc_op = AssembledSaddle(c["vblk_coarse"], c["cd_p"], self.dtype)
+        if self.triangular and self.precond_kind != "diag":
+            c["vblk_up"] = vertex_pattern(c["cd_u"], sp.u_space.ndof, c["cd_p"], sp.n_p)
+            self._held["A_up_e"] = AssembledBlocks(c["vblk_up"], "up", self.dtype)
+        self._sync()
+        self.build_seconds["patterns"] = time.perf_counter() - t0
         c["blk_b"] = blocks.scalar_table(fe.cd_b, item, self.device)
         c["blk_p"] = blocks.scalar_table(fe.cd_p, item, self.device)
         c["h_cells"] = T(fe.h_cells)
@@ -567,7 +594,8 @@ class PGModel:
             out = ops.get("coarse_e")
             ops["coarse_e"] = self._chunked_cells(build_, c["wq"], nu_q, c["f_q"],
                                                   c["invJT"], out=out)
-            cop = MaskedOperator(self._coarse_operator(ops["coarse_e"]), c["tg_coarse_free"])
+            self._refill(ops, ("coarse_e",))
+            cop = MaskedOperator(self._coarse_operator("coarse_e"), c["tg_coarse_free"])
             ops["coarse_dinv"] = 1.0 / cop.diagonal()
             return
 
@@ -655,10 +683,10 @@ class PGModel:
                                    pw / torch.linalg.vector_norm(pw)]).to(self.dtype)
 
         self._sc_op.fill(*(ops[k] for k in keys[:4]))
+        self._refill(ops, ("sc_uu", "sc_visc_e"))
         cmask = MaskedOperator(self._sc_op, self._coarse_free())
         ops["sc_sigma"] = torch.mean(torch.abs(cmask.diagonal()))
-        cvisc = MaskedOperator(self._coarse_operator(ops["sc_visc_e"]),
-                               c["tg_coarse_free"])
+        cvisc = MaskedOperator(self._coarse_operator("sc_visc_e"), c["tg_coarse_free"])
         ops["sc_lmax"] = power_lmax(cvisc, 1.0 / cvisc.diagonal(), 3 * nv)
 
         if self.saddle_coarse_l2:
@@ -721,10 +749,10 @@ class PGModel:
             return cmask(x) + sigma * w * torch.dot(w, x)
 
         tg_free = c["tg_coarse_free"]
-        cvisc = MaskedOperator(self._coarse_operator(ops["sc_visc_e"]), tg_free)
+        cvisc = MaskedOperator(self._coarse_operator("sc_visc_e"), tg_free)
         # the coarse level inherits the fine regime: rotation-dominated
         # runs smooth the full (nonsymmetric) coarse uu block
-        cuu = MaskedOperator(self._coarse_operator(ops["sc_uu"]), tg_free)
+        cuu = MaskedOperator(self._coarse_operator("sc_uu"), tg_free)
         Mc = BlockStokesPrecond(
             visc_op=cvisc,
             visc_diag_inv=ops["sc_visc_dinv"],
@@ -855,14 +883,12 @@ class PGModel:
                 f"U[{int(info) - 1}, {int(info) - 1}] of its LU is zero")
         return inv
 
-    def _coarse_operator(self, coarse_e) -> SaddleOperator:
-        """Vector-P1 operator over vertex nodes (layout 3*vertex+comp,
-        as the coarse correction vectors)."""
-        c = self.const
-        return SaddleOperator(uu=coarse_e, up=None, pu=None, cd_u=c["cd_p"],
-                              cd_p=c["cd_none"],
-                              n_u_nodes=self.fe.spaces.p_space.ndof,
-                              tables=c["blk_coarse"])
+    def _coarse_operator(self, key: str) -> AssembledBlocks:
+        """The held vector-P1 operator over vertex nodes (layout
+        3*vertex+comp, as the coarse correction vectors) of the element
+        tensor ``ops[key]`` ("sc_uu", "sc_visc_e" or "coarse_e"), filled
+        from the tensor's last write."""
+        return self._held[key]
 
     def _build_operators(self):
         fe, c = self.fe, self.const
@@ -911,8 +937,7 @@ class PGModel:
         if self.saddle_coarse:
             self._assemble_saddle_coarse(ops)
         if "sc_visc_e" in ops:
-            cvisc = MaskedOperator(self._coarse_operator(ops["sc_visc_e"]),
-                                   c["tg_coarse_free"])
+            cvisc = MaskedOperator(self._coarse_operator("sc_visc_e"), c["tg_coarse_free"])
             ops["sc_visc_dinv"] = 1.0 / cvisc.diagonal()
 
         # surface buoyancy-flux rhs (static; zero under Dirichlet BC)
@@ -973,16 +998,16 @@ class PGModel:
         iu, ip = self.inner_iters
         up_coupling = None
         if self.triangular:
-            free_u = c["free_u"]
-            up_coupling = lambda zp: free_u * Amat.up_matvec(zp)
+            # the P2-P1 pressure coupling, from its assembled blocks
+            free_u, up_op = c["free_u"], self._held["A_up_e"]
+            up_coupling = lambda zp: free_u * up_op.matvec(zp)
         coarse = None
         if "coarse_inv" in ops or "coarse_e" in ops:
             if "coarse_inv" in ops:
                 cinv = ops["coarse_inv"]
                 solve = lambda rc: cinv @ rc
             else:
-                cop = MaskedOperator(self._coarse_operator(ops["coarse_e"]),
-                                     c["tg_coarse_free"])
+                cop = MaskedOperator(self._coarse_operator("coarse_e"), c["tg_coarse_free"])
                 cdiag_inv = ops["coarse_dinv"]
 
                 def solve(rc):
@@ -1190,19 +1215,20 @@ class PGModel:
         if self.saddle_coarse:
             self._assemble_saddle_coarse(ops, nu_q)
             if "sc_visc_e" in ops:
-                cvisc = MaskedOperator(self._coarse_operator(ops["sc_visc_e"]),
-                                       c["tg_coarse_free"])
+                cvisc = MaskedOperator(self._coarse_operator("sc_visc_e"), c["tg_coarse_free"])
                 ops["sc_visc_dinv"] = 1.0 / cvisc.diagonal()
         return ops
 
     def _eddy_rebuild(self, ops, state: State):
         """Eddy-viscosity inversion-matrix rebuild (reference
         src/model.jl:160-170), written into ``ops``' own inversion
-        blocks (one copy in memory); the preconditioner is kept, as the
+        blocks (one copy in memory), with the assembled P2-P1 coupling
+        refilled from them; the preconditioner is kept, as the
         reference keeps it.  Returns the viscosity at the quadrature
         points."""
         nu_q = self.forcings.eddy_param.nu(self.const["f_eddy_q"], self._abz(state.b))
         self._assemble_inversion_elems(nu_q, out=(ops["A_uu_e"], ops["A_up_e"], ops["A_pu_e"]))
+        self._refill(ops, ("A_up_e",))
         return nu_q
 
     # ------------------------------------------------------------------

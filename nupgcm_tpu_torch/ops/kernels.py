@@ -15,13 +15,17 @@ One CUDA kernel, ``block_matvec_kernel`` in ``csrc/element_matvec.cu``
 * ``scalar_matvec`` (K2) -- one scalar space, A (nc, nl, nl).  It
   replaces ``window.py::scalar_matvec``.
 
-A second kernel, in ``csrc/vertex_block_matvec.cu``, applies the P1-P1
-coarse saddle operator from its assembled form (``ops/assembled.py``):
+A second kernel, in ``csrc/vertex_block_matvec.cu``, applies operators
+from their assembled form (``ops/assembled.py``):
 
-* ``vblock_matvec`` -- one 4x4 block per vertex pair in CSR order, in
-  modes "full_pp" (the whole block) and "up" (the 3x1 pressure-gradient
-  column, from its own copy); it replaces ``window.py::saddle_matvec``
-  in those modes on the coarse level.  ``VBlockLaunch`` prepares it.
+* ``vblock_matvec`` -- one block per pair of a row node and a column
+  node that share a cell, in CSR order, in modes "full_pp" (4x4 blocks
+  of the P1-P1 coarse saddle), "up" (3x1 pressure-gradient columns: the
+  coarse saddle's, from their own copy, or the P2-P1 inversion
+  operator's over P2 nodes x vertices) and "uu" (3x3 blocks of a P1
+  vector velocity operator); it replaces
+  ``window.py::saddle_matvec`` in those modes on those operators.
+  ``VBlockLaunch`` prepares it.
 
 Operators applied many times hold a ``PreparedLaunch``
 (``saddle_launch``, ``scalar_launch``): the tensors, tables and shapes
@@ -69,15 +73,16 @@ from . import blocks, build
 SADDLE_MODES = ("full", "full_pp", "uu", "up")
 LANES = 128  # the TPU kernels' lane width: one grid block of cells
 
-VBLOCK_MODES = ("full_pp", "up")
+VBLOCK_MODES = ("full_pp", "up", "uu")
 launches = {**{f"saddle_{m}": 0 for m in SADDLE_MODES}, "scalar": 0,
             "saddle_full_pinned": 0, "stream_saddle": 0, "stream_probe": 0,
             **{f"vblock_{m}": 0 for m in VBLOCK_MODES}}
 plain_calls = {"saddle": 0, "scalar": 0, "stream_saddle": 0, "stream_probe": 0, "vblock": 0}
-# launches per mode and local sizes, e.g. "saddle_uu[4,0]" (the P1
-# coarse velocity block), "scalar[10]" or "vblock_full_pp[4,4]" (the
-# assembled block's rows and columns); keys appear when a launch is
-# prepared
+# launches per mode and local sizes, e.g. "saddle_uu[10,0]" (the P2
+# velocity block), "scalar[10]" or "vblock_up[10,4]" (the assembled
+# P2-P1 coupling: the local sizes of its row and column dof tables, so
+# that it differs from the coarse level's "vblock_up[4,4]"); keys
+# appear when a launch is prepared
 shape_launches = {}
 
 
@@ -145,17 +150,19 @@ def stream_saddle_plain(uu, up, pu, carry):
 
 def vblock_matvec_plain(vals, col, row, x, mode, n_rows):
     """Plain version of ``vblock_matvec``: gather x by column, one
-    batched 4x4 (or 3x1) product per block, then a segment sum by row
-    (``index_add_`` over each block's row)."""
+    batched 4x4, 3x3 or 3x1 product per block, then a segment sum by
+    row (``index_add_`` over each block's row)."""
     c, r = col.long(), row.long()
     if mode == "up":
         yb = vals * x[c][:, None]
+    elif mode == "uu":
+        yb = torch.einsum("krs,ks->kr", vals.view(-1, 3, 3), x.view(-1, 3)[c])
     else:
         n3 = 3 * n_rows
         xb = torch.cat([x[:n3].view(-1, 3)[c], x[n3:][c][:, None]], dim=1)
         yb = torch.einsum("kij,kj->ki", vals.view(-1, 4, 4), xb)
     y = yb.new_zeros((n_rows, yb.shape[1])).index_add_(0, r, yb)
-    if mode == "up":
+    if mode in ("up", "uu"):
         return y.reshape(-1)
     return torch.cat([y[:, :3].reshape(-1), y[:, 3]])
 
@@ -444,27 +451,32 @@ def scalar_matvec(ae, cd, x):
 
 
 # ----------------------------------------------------------------------
-# the assembled vertex-block kernel (csrc/vertex_block_matvec.cu)
+# the assembled block kernel (csrc/vertex_block_matvec.cu)
 # ----------------------------------------------------------------------
 
-VBLOCK_WIDTH = {"full_pp": 16, "up": 3}  # values per block
-VBLOCK_SHAPE = {"full_pp": "4,4", "up": "3,1"}
+VBLOCK_WIDTH = {"full_pp": 16, "up": 3, "uu": 9}  # values per block
+
+
+def vblock_lengths(mode: str, n_rows: int, n_cols: int) -> tuple:
+    """(len(x), len(y)) of ``mode`` on a pattern of n_rows x n_cols nodes."""
+    return {"full_pp": (4 * n_rows, 4 * n_rows), "up": (n_cols, 3 * n_rows),
+            "uu": (3 * n_rows, 3 * n_rows)}[mode]
 
 
 class _VbParams(ctypes.Structure):
     """Mirror of ``struct VbLaunch`` in csrc/vertex_block_matvec.cu."""
     _fields_ = [*((f, ctypes.c_void_p) for f in ("vals", "col", "row_ptr")),
-                ("n_rows", ctypes.c_longlong),
+                *((f, ctypes.c_longlong) for f in ("n_rows", "n_cols")),
                 *((f, ctypes.c_int) for f in ("mode", "f64", "device", "grid")),
                 ("launcher", ctypes.c_void_p)]
 
 
-_vb_prepared = {}  # (mode, f64, n_rows, device) -> (grid, launcher)
+_vb_prepared = {}  # (mode, f64, n_rows, n_cols, device) -> (grid, launcher)
 
 
 def check_vblock(vals, col, row_ptr, mode: str) -> int:
-    """Shapes and types of an assembled vertex-block operator for
-    ``mode``; raises ValueError.  Returns the row (vertex) count."""
+    """Shapes and types of an assembled block operator for ``mode``;
+    raises ValueError.  Returns the row count."""
     _check(mode in VBLOCK_MODES, f"unknown vertex-block mode {mode!r}")
     _check(row_ptr.dim() == 1 and row_ptr.shape[0] >= 1 and col.dim() == 1
            and row_ptr.dtype == torch.int32 and col.dtype == torch.int32,
@@ -476,16 +488,21 @@ def check_vblock(vals, col, row_ptr, mode: str) -> int:
 
 
 class VBlockLaunch:
-    """One vertex-block application of ``mode`` on fixed CUDA tensors,
-    checked and prepared once.  A call reads the current stream, allocates y (the
-    kernel writes every entry), makes one ctypes call and counts the
-    launch."""
+    """One block application of ``mode`` on fixed CUDA tensors, checked
+    and prepared once.  ``sizes`` (the local sizes of the pattern's row
+    and column dof tables, e.g. (10, 4) for the P2-P1 coupling) name the
+    launch in ``shape_launches``; ``n_cols`` is the column count (x's
+    length in "up"; the row count by default).  A call reads the current
+    stream, allocates y (the kernel writes every entry), makes one
+    ctypes call and counts the launch."""
 
     __slots__ = ("params", "keep", "dtype", "index", "x_shape", "y_len", "counter",
                  "shape_key", "_fn", "_addr", "_lib")
 
-    def __init__(self, vals, col, row_ptr, mode: str):
+    def __init__(self, vals, col, row_ptr, mode: str, sizes=None, n_cols: int = None):
         n_rows = check_vblock(vals, col, row_ptr, mode)
+        n_cols = n_rows if n_cols is None else n_cols
+        _check(mode == "up" or n_cols == n_rows, f"mode {mode!r} needs a square pattern")
         dtype, device = vals.dtype, vals.device
         _check(dtype in (torch.float32, torch.float64),
                f"kernels take float32 or float64, got {dtype}")
@@ -494,13 +511,16 @@ class VBlockLaunch:
         for t, what in ((col, "col"), (row_ptr, "row_ptr")):
             _check(t.device == device and t.is_contiguous(),
                    f"{what} must be a contiguous int32 vector on {device}")
+        _check(sizes is not None and len(sizes) == 2,
+               "a launch needs the pattern's local sizes (rows, columns)")
         lib = build.load()
         self.index = device.index if device.index is not None else torch.cuda.current_device()
         p = _VbParams()
         p.vals, p.col, p.row_ptr = vals.data_ptr(), col.data_ptr(), row_ptr.data_ptr()
-        p.n_rows, p.mode, p.f64 = n_rows, _MODE_ID[mode], int(dtype == torch.float64)
+        p.n_rows, p.n_cols = n_rows, n_cols
+        p.mode, p.f64 = _MODE_ID[mode], int(dtype == torch.float64)
         p.device = self.index
-        key = (mode, p.f64, n_rows, self.index)
+        key = (mode, p.f64, n_rows, n_cols, self.index)
         if key not in _vb_prepared:
             with torch.cuda.device(self.index):
                 err = lib.nupgcm_vb_prepare(ctypes.byref(p))
@@ -510,10 +530,10 @@ class VBlockLaunch:
             _vb_prepared[key] = (p.grid, p.launcher)
         p.grid, p.launcher = _vb_prepared[key]
         self.params, self.keep, self.dtype = p, (vals, col, row_ptr), dtype
-        self.x_shape = (4 * n_rows if mode == "full_pp" else n_rows,)
-        self.y_len = 4 * n_rows if mode == "full_pp" else 3 * n_rows
+        x_len, self.y_len = vblock_lengths(mode, n_rows, n_cols)
+        self.x_shape = (x_len,)
         self.counter = f"vblock_{mode}"
-        self.shape_key = f"{self.counter}[{VBLOCK_SHAPE[mode]}]"
+        self.shape_key = f"{self.counter}[{sizes[0]},{sizes[1]}]"
         self._fn, self._addr, self._lib = lib.nupgcm_vb_apply, ctypes.addressof(p), lib
         shape_launches.setdefault(self.shape_key, 0)
 
@@ -533,25 +553,31 @@ class VBlockLaunch:
         return y
 
 
-def vblock_matvec(vals, col, row_ptr, row, x, mode: str):
-    """y = A x for an assembled vertex-block operator (ops/assembled.py).
+def vblock_matvec(vals, col, row_ptr, row, x, mode: str, n_cols: int = None,
+                  sizes=None):
+    """y = A x for an assembled block operator (ops/assembled.py).
 
-    vals (n_blocks, 16) 4x4 blocks, rows and columns [u_x, u_y, u_z, p],
-    or (n_blocks, 3) their pressure-gradient columns; col and row
-    (n_blocks,) int32 the blocks' column and row vertices, sorted by row
-    then column; row_ptr (n_rows + 1,) int32 the rows' block offsets.
+    vals (n_blocks, 16) 4x4 blocks, rows and columns [u_x, u_y, u_z, p];
+    or (n_blocks, 3) 3x1 pressure-gradient columns; or (n_blocks, 9) 3x3
+    velocity blocks, row-major; col and row (n_blocks,) int32
+    the blocks' column and row nodes, sorted by row then column; row_ptr
+    (n_rows + 1,) int32 the rows' block offsets; n_cols the column
+    count ("up" on a rectangular pattern; the row count by default).
       "full_pp": x, y = [u (3 n_rows, node-major), p (n_rows)]
-      "up":      x = p (n_rows), y = u (3 n_rows)
-    On a CUDA device this prepares the launch for one call; operators
-    that apply many times hold a ``VBlockLaunch``."""
+      "up":      x = p (n_cols), y = u (3 n_rows)
+      "uu":      x, y = u (3 n_rows, node-major)
+    On a CUDA device this prepares the launch for one call (``sizes``, the
+    pattern's local sizes, name it); operators that apply many times
+    hold a ``VBlockLaunch``."""
     _check(x.device.type in ("cpu", "cuda"), f"no kernel for device {x.device}")
     n_rows = check_vblock(vals, col, row_ptr, mode)
-    _check(x.dim() == 1 and x.shape[0] == (4 if mode == "full_pp" else 1) * n_rows,
-           f"x of mode {mode!r} must be a vector over the {n_rows} rows")
+    n_cols = n_rows if n_cols is None else n_cols
+    _check(x.dim() == 1 and x.shape[0] == vblock_lengths(mode, n_rows, n_cols)[0],
+           f"x of mode {mode!r} must be a vector over the {n_rows} x {n_cols} pattern")
     if x.device.type == "cpu":
         plain_calls["vblock"] += 1
         return vblock_matvec_plain(vals, col, row, x, mode, n_rows)
-    return VBlockLaunch(vals, col, row_ptr, mode)(x)
+    return VBlockLaunch(vals, col, row_ptr, mode, sizes, n_cols)(x)
 
 
 def stream_saddle(uu, up, pu, carry):

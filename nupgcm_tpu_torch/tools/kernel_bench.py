@@ -1,4 +1,4 @@
-"""K1/K2 and the vertex-block kernel at the model's shapes, and the
+"""K1/K2 and the assembled block kernel at the model's shapes, and the
 model's step rate, on one card.
 
 For every element-matvec kernel case the model runs (the P2-P1
@@ -29,13 +29,18 @@ library yardstick, never used by the port):
               call's own bound (library_bound_ms) counts its matrix's
               values and indices in place of the element tensors
 
-The iterative coarse level applies its P1-P1 saddle ("full_pp") and
-pressure coupling ("up") through the assembled vertex-block kernel
-(``ops/assembled.py``, ``csrc/vertex_block_matvec.cu``):
-``assembled_cases`` times each beside K1 on the same operator's element
-tensors (the time before the redesign) and beside the CSR call, in
-turns (new, K1, CSR, CSR, K1, new), every reading with a cold L2: at
-the 0.87M-DoF bowl the f32 blocks (36.5 MB) fit in the H100's 50 MB L2,
+The model applies some operators through the assembled block kernel
+(``ops/assembled.py``, ``csrc/vertex_block_matvec.cu``): the iterative
+coarse level's P1-P1 saddle ("full_pp") and pressure coupling ("up"),
+the P1 vector velocity blocks of the coarse level ("uu": its velocity
+block and viscous smoother, or the two-grid's element coarse level) and
+the P2-P1 pressure coupling ("up" on P2 nodes x vertices).
+``kernel_cases`` keeps their K1 cases (the DD path's, and the single
+device's before the redesign), over K1 tables built here, since the
+model holds none for them.  ``assembled_cases`` times each assembled
+case beside K1 on the same operator's element tensors and beside the
+CSR call, in turns (new, K1, CSR, CSR, K1, new), every reading with a
+cold L2: at the 0.87M-DoF bowl the f32 blocks (36.5 MB) fit in the H100's 50 MB L2,
 where back-to-back calls would read them at L2 speed, below the HBM
 bound, while in the step the L2 is cold (the aggregate level's inverse,
 580 MB, and the fine operators pass through it between two coarse
@@ -98,60 +103,64 @@ def nbytes(*ts):
 
 
 def kernel_cases(model, Kv_e=None):
-    """Every kernel case of the model's step, as dicts: entry
+    """Every K1/K2 case of the model's step, and of its operators that the
+    model applies from assembled blocks (their K1 cases), as dicts: entry
     ("saddle_matvec" / "scalar_matvec"), mode (None for K2), label,
     blocks (uu, up, pu, pp or (ae,)), cd tables, the block-table key of
-    ``model.const`` (None where the tree has none), n_x, n_nodes, n_p.
-    ``Kv_e`` replaces the static vertical diffusion in the evolution
-    matrix."""
+    ``model.const`` (None where the tree has none, or where "tables"
+    holds the case's own K1 tables), n_x, n_nodes, n_p.  ``Kv_e``
+    replaces the static vertical diffusion in the evolution matrix."""
     c, o, sp = model.const, model.ops, model.fe.spaces
     nu, nv = sp.u_space.ndof, sp.p_space.ndof
     theta = 2.0 / 3.0 * float(model.ts.dt) * model.params.a2e2 / model.params.mu_rho
     evo = o["M_e"] + theta * (o["Kh_e"] + (o["Kv_e"] if Kv_e is None else Kv_e))
-    tables = "blk_fine" in c
+    has_tables = "blk_fine" in c
 
     def saddle(mode, label, blocks, cd_u, cd_p, key, n_nodes, n_p, **kw):
         n_x = {"full": 3 * n_nodes + n_p, "full_pp": 3 * n_nodes + n_p,
                "uu": 3 * n_nodes, "up": n_p}[mode]
         return dict(entry="saddle_matvec", mode=mode, label=label, blocks=blocks,
-                    cd=(cd_u, cd_p), key=key if tables else None, n_x=n_x,
+                    cd=(cd_u, cd_p), key=key if has_tables else None, n_x=n_x,
                     n_nodes=n_nodes, n_p=n_p if mode != "uu" else 0, **kw)
 
     def scalar(label, ae, cd, key, n):
         return dict(entry="scalar_matvec", mode=None, label=label, blocks=(ae,), cd=(cd,),
-                    key=key if tables else None, n_x=n, n_nodes=None, n_p=0)
+                    key=key if has_tables else None, n_x=n, n_nodes=None, n_p=0)
+
+    def k1(modes, fine=False):
+        """K1 tables the model does not hold (it applies these operators
+        from assembled blocks): DD's path, and the single device's before
+        the assembled layout."""
+        got = kernel_tables(model, modes, fine) if has_tables else {}
+        return {m: got.get(m) for m in modes}
 
     cases = [
         saddle("full", "P2-P1 inversion operator", (o["A_uu_e"], o["A_up_e"], o["A_pu_e"], None),
                c["cd_u"], c["cd_p"], "blk_fine", nu, sp.n_p),
         saddle("up", "P2-P1 pressure coupling", (None, o["A_up_e"], None, None),
-               c["cd_u"], c["cd_p"], "blk_fine", nu, sp.n_p),
+               c["cd_u"], c["cd_p"], None, nu, sp.n_p, tables=k1(("up",), fine=True)["up"]),
         saddle("uu", "P2 velocity block", (o["A_uu_e"], None, None, None),
                c["cd_u"], c["cd_none"], "blk_fine", nu, 0),
         saddle("uu", "P2 viscous smoother", (o["visc_e"], None, None, None),
                c["cd_u"], c["cd_none"], "blk_fine", nu, 0),
     ]
     if "sc_uu" in o:
-        # K1 on the coarse saddle: DD's path, and the single device's
-        # before the assembled layout; its tables are built here (a
-        # model holds the coarse level's "uu" tables alone)
-        k1 = (kernel_tables(model, ("full_pp", "up")) if tables
-              else {"full_pp": None, "up": None})
+        t = k1(("full_pp", "up", "uu"))
         cases += [
             saddle("full_pp", "P1-P1 stabilized coarse saddle",
                    (o["sc_uu"], o["sc_up"], o["sc_pu"], o["sc_pp"]), c["cd_p"], c["cd_p"],
-                   "blk_coarse", nv, nv, tables=k1["full_pp"]),
+                   None, nv, nv, tables=t["full_pp"]),
             saddle("up", "P1-P1 coarse pressure coupling", (None, o["sc_up"], None, None),
-                   c["cd_p"], c["cd_p"], "blk_coarse", nv, nv, tables=k1["up"]),
+                   c["cd_p"], c["cd_p"], None, nv, nv, tables=t["up"]),
             saddle("uu", "P1 coarse velocity block", (o["sc_uu"], None, None, None),
-                   c["cd_p"], c["cd_none"], "blk_coarse", nv, 0),
+                   c["cd_p"], c["cd_none"], None, nv, 0, tables=t["uu"]),
             saddle("uu", "P1 coarse viscous smoother", (o["sc_visc_e"], None, None, None),
-                   c["cd_p"], c["cd_none"], "blk_coarse", nv, 0),
+                   c["cd_p"], c["cd_none"], None, nv, 0, tables=t["uu"]),
         ]
     if "coarse_e" in o:  # the u-block two-grid's element coarse level
         cases.append(saddle("uu", "P1 vector two-grid coarse block",
                             (o["coarse_e"], None, None, None), c["cd_p"], c["cd_none"],
-                            "blk_coarse", nv, 0))
+                            None, nv, 0, tables=k1(("uu",))["uu"]))
     cases += [
         scalar(f"P{sp.b_order} buoyancy evolution matrix", evo, c["cd_b"], "blk_b", sp.n_b),
         scalar("P1 pressure mass", o["Mp_e"], c["cd_p"], "blk_p", sp.n_p),
@@ -159,47 +168,85 @@ def kernel_cases(model, Kv_e=None):
     return cases
 
 
-def kernel_tables(model, modes):
-    """K1's block tables of the P1-P1 coarse saddle in ``modes``, in the
-    model's dtype and on its device."""
+def kernel_tables(model, modes, fine=False):
+    """K1's block tables in ``modes`` over the P2-P1 dof tables (``fine``)
+    or the P1-P1 ones, for the model's dtype and on its device."""
     from nupgcm_tpu_torch.ops import blocks
 
-    item = model.ops["sc_uu"].element_size()
-    return blocks.operator_tables(model.fe.cd_p, model.fe.cd_p, modes, item, model.device)
+    fe = model.fe
+    item = torch.empty((), dtype=model.dtype).element_size()
+    return blocks.operator_tables(fe.cd_u if fine else fe.cd_p, fe.cd_p, modes, item,
+                                  model.device)
 
 
 def assembled_cases(model):
-    """The assembled vertex-block cases of the model's step (the
-    iterative coarse level's P1-P1 saddle and its pressure coupling), as
-    ``kernel_cases``' dicts with entry "vblock_matvec", the pattern, the
-    four element tensors the values are filled from ("sc"), and in
-    "blocks" the K1 case's element tensors (the time before the
-    redesign, and the CSR yardstick's operator).  Empty where the model
-    (or the tree) has no such level."""
-    c, o = model.const, model.ops
-    if "vblk_coarse" not in c or "sc_uu" not in o:
-        return []
-    nv = model.fe.spaces.p_space.ndof
-    sc = tuple(o[k] for k in ("sc_uu", "sc_up", "sc_pu", "sc_pp"))
+    """The assembled block cases of the model's step, as
+    ``kernel_cases``' dicts with entry "vblock_matvec", a name, the
+    pattern, the pattern's dof tables and node counts ("pcd": cd_r,
+    n_rows, cd_c, n_cols), the element tensors the values are filled
+    from ("fill": the coarse saddle's four, or one), in "blocks" the K1
+    case's element tensors (the time before the redesign, and the CSR
+    yardstick's operator) and "fine" where K1 ran it over the P2-P1
+    tables.  Empty where the model (or the tree) applies none."""
+    c, o, sp = model.const, model.ops, model.fe.spaces
+    held = getattr(model, "_held", {})  # an older tree holds the coarse saddle alone
+    nu, nv = sp.u_space.ndof, sp.p_space.ndof
 
-    def case(mode, label, blocks):
-        return dict(entry="vblock_matvec", mode=mode, label=label, pattern=c["vblk_coarse"],
-                    sc=sc, blocks=blocks, cd=(c["cd_p"], c["cd_p"]),
-                    n_x=4 * nv if mode == "full_pp" else nv, n_nodes=nv, n_p=nv)
+    def case(name, mode, label, pattern, pcd, fill, blocks, cd, n_nodes, n_p, fine=False):
+        return dict(entry="vblock_matvec", name=name, mode=mode, label=label, pattern=pattern,
+                    pcd=pcd, fill=fill, blocks=blocks, cd=cd, fine=fine,
+                    n_x={"full_pp": 4 * n_nodes, "uu": 3 * n_nodes, "up": n_p}[mode],
+                    n_nodes=n_nodes, n_p=n_p)
 
-    return [case("full_pp", "P1-P1 coarse saddle, assembled", sc),
-            case("up", "P1-P1 coarse pressure coupling, assembled", (None, sc[1], None, None))]
+    cases = []
+    p1 = (c["cd_p"], nv, c["cd_p"], nv)
+    if "vblk_coarse" in c and "sc_uu" in o:
+        sc = tuple(o[k] for k in ("sc_uu", "sc_up", "sc_pu", "sc_pp"))
+        cases += [case("vblock_matvec[full_pp]", "full_pp", "P1-P1 coarse saddle, assembled",
+                       c["vblk_coarse"], p1, sc, sc, (c["cd_p"], c["cd_p"]), nv, nv),
+                  case("vblock_matvec[up]", "up", "P1-P1 coarse pressure coupling, assembled",
+                       c["vblk_coarse"], p1, sc, (None, sc[1], None, None),
+                       (c["cd_p"], c["cd_p"]), nv, nv)]
+    for key, label in (("sc_uu", "P1 coarse velocity block, assembled"),
+                       ("sc_visc_e", "P1 coarse viscous smoother, assembled"),
+                       ("coarse_e", "P1 vector two-grid coarse block, assembled")):
+        if key in held:
+            cases.append(case("vblock_matvec[uu]", "uu", label, c["vblk_coarse"], p1, (o[key],),
+                              (o[key], None, None, None), (c["cd_p"], c["cd_none"]), nv, 0))
+    if "A_up_e" in held:
+        cases.append(case("vblock_matvec[up P2-P1]", "up", "P2-P1 pressure coupling, assembled",
+                          c["vblk_up"], (c["cd_u"], nu, c["cd_p"], sp.n_p), (o["A_up_e"],),
+                          (None, o["A_up_e"], None, None), (c["cd_u"], c["cd_p"]), nu, sp.n_p,
+                          fine=True))
+    return cases
 
 
 def vblock_values(case, dtype):
-    """(values, pattern) of an assembled case in ``dtype``: the blocks
-    ("full_pp") or their pressure-gradient columns ("up")."""
-    from nupgcm_tpu_torch.ops.assembled import AssembledSaddle
+    """(values, pattern) of an assembled case in ``dtype``, filled from its
+    element tensors: the coarse saddle's blocks ("full_pp") or their
+    pressure-gradient columns ("up"), or the one operator's values.
+    ``case["perm"]``, where given, reorders the cells first (and the
+    pattern is rebuilt from the reordered dof tables)."""
+    from nupgcm_tpu_torch.ops import assembled as A
 
-    pat = case["pattern"]
-    op = AssembledSaddle(pat, case["cd"][0], dtype).fill(
-        *(t.to(dtype).contiguous() for t in case["sc"]))
-    return (op.vals if case["mode"] == "full_pp" else op.up_vals), pat
+    pat, fill = case["pattern"], [t.to(dtype).contiguous() for t in case["fill"]]
+    cd_r, n_r, cd_c, n_c = case["pcd"]
+    perm = case.get("perm")
+    if perm is not None:
+        fill = [t[perm] for t in fill]
+        cd_r, cd_c = cd_r[perm], cd_c[perm]
+        pat = A.vertex_pattern(cd_r, n_r, cd_c, n_c)
+    if len(fill) == 4:
+        op = A.AssembledSaddle(pat, cd_r, dtype).fill(*fill)
+        return (op.vals if case["mode"] == "full_pp" else op.up_vals), pat
+    return A.AssembledBlocks(pat, case["mode"], dtype, cd_r).fill(fill[0]).vals, pat
+
+
+def vblock_shape(pat):
+    """The launch arguments after the mode that a pattern gives: its local
+    sizes and column count (none in an older tree, whose launches take
+    square patterns alone)."""
+    return (pat.sizes, pat.n_cols) if hasattr(pat, "sizes") else ()
 
 
 def case_fns(model, K, case, dtype):
@@ -215,7 +262,7 @@ def case_fns(model, K, case, dtype):
     if case["entry"] == "vblock_matvec":
         vals, pat = vblock_values(case, dtype)
         mode = case["mode"]
-        launch = K.VBlockLaunch(vals, pat.col, pat.row_ptr, mode)
+        launch = K.VBlockLaunch(vals, pat.col, pat.row_ptr, mode, *vblock_shape(pat))
         return ((lambda: launch(x)),
                 (lambda: K.vblock_matvec_plain(vals, pat.col, pat.row, x, mode, pat.n_rows)), x)
     if case["mode"] is None:
@@ -227,9 +274,10 @@ def case_fns(model, K, case, dtype):
         return (lambda: launch(x)), plain, x
     mode, n = case["mode"], case["n_nodes"]
     plain = lambda: K.saddle_matvec_plain(*blocks, *cd, x, mode, n)
-    if case["key"] is None:
+    tables = case.get("tables")
+    if tables is None and case["key"] is None:
         return (lambda: K.saddle_matvec(*blocks, *cd, x, mode, n)), plain, x
-    tables = case.get("tables") or model.const[case["key"]][mode]
+    tables = tables or model.const[case["key"]][mode]
     launch = K.saddle_launch(*blocks, tables, mode, n, case["n_p"])
     return (lambda: launch(x)), plain, x
 
@@ -441,17 +489,17 @@ def rotating(make, nbytes_one):
 
 
 def measure_assembled(model, K, case, log=print, tag="kernels"):
-    """f32 times of an assembled case: the vertex-block kernel, K1 on the
+    """f32 times of an assembled case: the block kernel, K1 on the
     same operator's element tensors and the CSR call, in turns (new, K1,
     CSR, CSR, K1, new), each over rotating copies of its inputs (a cold
     L2 on every call); the CUDA-graph replays of the new kernel and K1;
     the bounds; the plain time."""
-    mode, nv = case["mode"], case["n_nodes"]
+    mode, n_nodes = case["mode"], case["n_nodes"]
     kfn, pfn, x = case_fns(model, K, case, torch.float32)
     vals, pat = vblock_values(case, torch.float32)
     blocks = tuple(None if t is None else t.float().contiguous() for t in case["blocks"])
     csr = operator_csr(case, blocks, case["n_x"])
-    tables = kernel_tables(model, (mode,))[mode]
+    tables = kernel_tables(model, (mode,), case.get("fine", False))[mode]
     y0 = pfn()
     scale = float(y0.abs().max())
     err = float((kfn() - y0).abs().max())
@@ -459,12 +507,13 @@ def measure_assembled(model, K, case, log=print, tag="kernels"):
     new_bytes = nbytes(vals, pat.col, pat.row_ptr)
 
     def make_new():
-        launch = K.VBlockLaunch(vals.clone(), pat.col.clone(), pat.row_ptr.clone(), mode)
+        launch = K.VBlockLaunch(vals.clone(), pat.col.clone(), pat.row_ptr.clone(), mode,
+                                *vblock_shape(pat))
         return lambda: launch(x)
 
     def make_k1():
         launch = K.saddle_launch(*(None if t is None else t.clone() for t in blocks), tables,
-                                 mode, nv, case["n_p"])
+                                 mode, n_nodes, case["n_p"])
         return lambda: launch(x)
 
     def make_csr():
@@ -485,7 +534,7 @@ def measure_assembled(model, K, case, log=print, tag="kernels"):
         got = [v[t] for t, j in enumerate(order) if j == i and v[t] is not None]
         return sum(got) / len(got) if got else None
 
-    out_len = 3 * nv if mode == "up" else case["n_x"]
+    out_len = pat.n_rows * (4 if mode == "full_pp" else 3)
     y_bytes = out_len * vals.element_size()
     b_ms, b_by = bound(new_bytes + nbytes(x) + y_bytes, 2 * vals.numel())
     k1_ms, _ = bound(nbytes(*blocks, *case["cd"], x) + y_bytes,
@@ -493,7 +542,7 @@ def measure_assembled(model, K, case, log=print, tag="kernels"):
     lib_b_ms, _ = bound(nbytes(csr.values(), csr.col_indices(), csr.crow_indices(), x)
                         + y_bytes, 2 * csr.values().numel())
     rec = dict(entry=case["entry"], mode=mode, label=case["label"],
-               shape=[4, 4] if mode == "full_pp" else [3, 1], nc=pat.n_blocks,
+               shape={"full_pp": [4, 4], "up": [3, 1], "uu": [3, 3]}[mode], nc=pat.n_blocks,
                n_blocks=pat.n_blocks, max_abs_err=err, rel_err=err / scale,
                lib_rel_err=lib_err / scale, ms=mean(turns, 0), library_ms=mean(turns, 2),
                device_ms=mean(dev, 0), graph_ms=g_ms[0], library_device_ms=mean(dev, 2),
@@ -503,7 +552,7 @@ def measure_assembled(model, K, case, log=print, tag="kernels"):
                k1_graph_ms=g_ms[1], k1_bound_ms=k1_ms, copies=[f.copies for f in fns],
                cold_l2=True)
     fmt = lambda v: "n/m" if v is None else f"{v:.4f}"
-    log(f"[{tag}] vblock_matvec[{mode}] {rec['label']:34s} f32, cold L2 (copies "
+    log(f"[{tag}] {case.get('name', 'vblock_matvec')} {rec['label']:34s} f32, cold L2 (copies "
         f"{rec['copies']}): kernel {fmt(rec['ms'])} ms (device {fmt(rec['device_ms'])}, graph "
         f"replay {fmt(g_ms[0])}, host {rec['host_us']:.1f} us), K1 on the element tensors "
         f"{fmt(rec['k1_ms'])} ms (device {fmt(rec['k1_device_ms'])}, graph replay "

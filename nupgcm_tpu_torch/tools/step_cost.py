@@ -16,8 +16,11 @@ has settled and a step costs a fraction as much at either k:
                synchronise (200 for the set-up): the coarse saddle
                operator's ``matvec`` and ``up_matvec`` (the calls the
                coarse level makes 136 and 64 times a step at k = 8),
-               and the inversion preconditioner's set-up
-               (``_make_inv_precond``, once a solve)
+               the coarse P1 vector velocity block's ``matvec`` (its
+               viscous smoother's costs the same), the P2-P1 pressure
+               coupling's (once an outer FGMRES iteration), and the
+               inversion preconditioner's set-up (``_make_inv_precond``,
+               once a solve)
   profile      a ``cProfile`` of 3 steps: the functions with the most
                own time, each with its calls per step, and the step's
                total
@@ -31,7 +34,10 @@ parent and the change in turns in one call on one card:
 
 It imports ``nupgcm_tpu_torch`` from ``--root``; a tree without the
 assembled coarse operator (``PGModel._sc_op``) applies its element
-``SaddleOperator`` (``_saddle_coarse_operator``).  Needs a CUDA device.
+``SaddleOperator`` (``_saddle_coarse_operator``), and one without the
+held assembled operators (``PGModel._held``) applies K1 for the coarse
+velocity block (``_coarse_operator`` of the tensor) and the P2-P1
+coupling (``_inv_matrix(...).up_matvec``).  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -70,6 +76,18 @@ def coarse_operator(model):
     return op if op is not None else model._saddle_coarse_operator(model.ops)
 
 
+def velocity_operator(model):
+    """The coarse P1 vector velocity block a solve applies, in either tree."""
+    held = getattr(model, "_held", None)
+    return held["sc_uu"] if held is not None else model._coarse_operator(model.ops["sc_uu"])
+
+
+def coupling(model):
+    """The P2-P1 pressure coupling a solve applies, in either tree."""
+    held = getattr(model, "_held", None)
+    return held["A_up_e"].matvec if held is not None else model._inv_matrix(model.ops).up_matvec
+
+
 def profile_steps(model, state, n=3):
     """(rows, s per step): ``cProfile`` of ``n`` steps from ``state``,
     the TOP functions by own time with calls and ms per step."""
@@ -103,6 +121,9 @@ def run(windows=5, log=print):
     rng = np.random.default_rng(0)
     x = torch.as_tensor(rng.standard_normal(4 * nv), dtype=torch.float32, device="cuda")
     xp = x[3 * nv:].clone()
+    xu = x[:3 * nv].clone()
+    xpf = torch.as_tensor(rng.standard_normal(model.fe.spaces.n_p), dtype=torch.float32,
+                          device="cuda")
     for k in KS:
         model.retune(saddle_coarse_inner=k)
         st0 = state
@@ -121,9 +142,11 @@ def run(windows=5, log=print):
         K.reset_counts()
         share, pwall, _, _ = kb.busy_share(model, st0, n=3)
         launches = {key: v / 3 for key, v in K.shape_launches.items() if v}
-        cop = coarse_operator(model)
+        cop, vel, up = coarse_operator(model), velocity_operator(model), coupling(model)
         costs = {"coarse_matvec_us": host_us(lambda: cop.matvec(x)),
                  "coarse_up_matvec_us": host_us(lambda: cop.up_matvec(xp)),
+                 "coarse_uu_matvec_us": host_us(lambda: vel.matvec(xu)),
+                 "coupling_matvec_us": host_us(lambda: up(xpf)),
                  "precond_setup_us": host_us(lambda: model._make_inv_precond(model.ops), 200)}
         rows, prof_s = profile_steps(model, st0)
         rec = dict(walls_s_3=walls, inv_iters=its[:3],
@@ -136,7 +159,9 @@ def run(windows=5, log=print):
             f"(median {rec['median_ms_per_step']:.1f} ms a step; FGMRES {its[:3]}), busy "
             f"{rec['busy_ms_per_step']} ms a step; host us: coarse matvec "
             f"{costs['coarse_matvec_us']:.1f}, up_matvec {costs['coarse_up_matvec_us']:.1f}, "
-            f"preconditioner set-up {costs['precond_setup_us']:.1f}; cProfile "
+            f"velocity block {costs['coarse_uu_matvec_us']:.1f}, P2-P1 coupling "
+            f"{costs['coupling_matvec_us']:.1f}, preconditioner set-up "
+            f"{costs['precond_setup_us']:.1f}; cProfile "
             f"{rec['profiled_ms_per_step']:.1f} ms a step ({out['card']})")
         for r in rows[:12]:
             log(f"    {r['own_ms']:8.2f} ms own {r['cum_ms']:8.2f} cum {r['calls']:8.1f} calls  "

@@ -264,7 +264,7 @@ def test_bench_cases_match_k1_and_the_csr_yardstick():
 
     m = _eddy_model(npt, dtype=torch.float64, device="cpu")
     cases = kb.assembled_cases(m)
-    assert [c["mode"] for c in cases] == ["full_pp", "up"]
+    assert [c["mode"] for c in cases] == ["full_pp", "up", "uu", "uu", "up"]
     rng = np.random.default_rng(7)
     for case in cases:
         vals, pat = kb.vblock_values(case, torch.float64)
@@ -278,9 +278,10 @@ def test_bench_cases_match_k1_and_the_csr_yardstick():
         y1 = torch.sparse.mm(kb.operator_csr(case, case["blocks"], case["n_x"]), x[:, None])[:, 0]
         for other in (y0, y1):
             assert float((y - other).abs().max()) <= 1e-12 * float(other.abs().max())
-    # the model without an iterative coarse level has no such case
-    assert kb.assembled_cases(_eddy_model(npt, dtype=torch.float64, device="cpu",
-                                          saddle_coarse=False, twogrid=True)) == []
+    # the model without an iterative coarse level has no coarse saddle case
+    assert [c["mode"] for c in kb.assembled_cases(_eddy_model(
+        npt, dtype=torch.float64, device="cpu", saddle_coarse=False, twogrid=True))] == [
+        "uu", "up"]
 
 
 def test_rotating_copies_evict_the_l2():
@@ -325,11 +326,11 @@ def test_vblock_wrapper_counts_and_refuses():
 
 
 def test_vblock_params_mirror_the_c_struct():
-    # struct VbLaunch: 3 pointers, 1 long long, 4 int, 1 pointer
+    # struct VbLaunch: 3 pointers, 2 long long, 4 int, 1 pointer
     import ctypes
 
-    assert ctypes.sizeof(K._VbParams) == 56
-    assert K._VbParams.n_rows.offset == 24 and K._VbParams.launcher.offset == 48
+    assert ctypes.sizeof(K._VbParams) == 64
+    assert K._VbParams.n_rows.offset == 24 and K._VbParams.launcher.offset == 56
 
 
 def test_step_cost_tool_needs_cuda_and_finds_the_coarse_operator():

@@ -258,9 +258,10 @@ def test_model_builds_block_tables_once_and_operators_share_them():
     model = mixing_setup(npt.generators.bowl3D(0.35, 0.5, nz=3), "cpu", torch.float64)
     c, fe = model.const, model.fe
     tu, tp = c["blk_fine"]["full"]
-    assert c["blk_fine"]["uu"][1] is None and c["blk_coarse"]["uu"][0].nl == 4
-    # the coarse saddle runs from assembled vertex blocks, not K1's tables
-    assert set(c["blk_coarse"]) == {"uu"}
+    assert c["blk_fine"]["uu"][1] is None and set(c["blk_fine"]) == {"full", "uu"}
+    # the coarse level and the P2-P1 coupling run from assembled blocks,
+    # not K1's tables
+    assert "blk_coarse" not in c
     for t, cd in ((tu, fe.cd_u), (tp, fe.cd_p), (c["blk_b"], fe.cd_b), (c["blk_p"], fe.cd_p)):
         blk = np.arange(t.nc) // t.cells
         np.testing.assert_array_equal(
@@ -285,8 +286,8 @@ def model():
 def test_every_kernel_case_of_the_model_runs_blocked_on_its_tables(model):
     """Each K1/K2 case of the step (tools/kernel_bench.py), computed
     blocked from the model's own block tables (from the case's own for
-    the coarse saddle, which the model applies from assembled vertex
-    blocks), equals the plain version at 1e-12 of max|y| (f64)."""
+    the operators the model applies from assembled blocks), equals the
+    plain version at 1e-12 of max|y| (f64)."""
     from nupgcm_tpu_torch.tools import kernel_bench
 
     cases = kernel_bench.kernel_cases(model)
@@ -295,12 +296,11 @@ def test_every_kernel_case_of_the_model_runs_blocked_on_its_tables(model):
     rng = np.random.default_rng(6)
     for case in cases:
         x = torch.as_tensor(rng.standard_normal(case["n_x"]))
-        tables = model.const[case["key"]]
         if case["mode"] is None:
-            y = blocks.blocked_scalar_plain(*case["blocks"], tables, x)
+            y = blocks.blocked_scalar_plain(*case["blocks"], model.const[case["key"]], x)
             y0 = K.scalar_matvec_plain(*case["blocks"], *case["cd"], x)
         else:
-            tu, tp = case.get("tables") or tables[case["mode"]]
+            tu, tp = case.get("tables") or model.const[case["key"]][case["mode"]]
             y = blocks.blocked_saddle_plain(*case["blocks"], tu, tp, x, case["mode"],
                                             case["n_nodes"])
             y0 = K.saddle_matvec_plain(*case["blocks"], *case["cd"], x, case["mode"],

@@ -120,10 +120,10 @@ def test_twogrid_refresh(branch):
 @pytest.mark.parametrize("branch", list(BRANCHES))
 def test_twogrid_kernel_cases(branch):
     """tools/kernel_bench lists the element branch's P1 vector coarse
-    block (the case the card's smoke run holds against plain), computed
-    blocked from the model's own tables equal to the coarse operator
-    the preconditioner applies (1e-12 of max|y|, f64); the dense branch
-    has no such case."""
+    block (K1's case, which the card's smoke run holds against plain),
+    computed blocked from its own K1 tables equal to the coarse operator
+    the preconditioner applies (the model's assembled one; 1e-12 of
+    max|y|, f64); the dense branch has no such case."""
     from nupgcm_tpu_torch.ops import blocks
     from nupgcm_tpu_torch.tools import kernel_bench
 
@@ -137,7 +137,7 @@ def test_twogrid_kernel_cases(branch):
     (case,) = cases
     assert case["mode"] == "uu" and case["blocks"][0].shape[1:] == (12, 12)
     x = torch.as_tensor(np.random.default_rng(2).standard_normal(case["n_x"]))
-    tu, tp = mt.const[case["key"]]["uu"]
+    tu, tp = case["tables"]
     y = blocks.blocked_saddle_plain(*case["blocks"], tu, tp, x, "uu", case["n_nodes"])
-    y0 = mt._coarse_operator(mt.ops["coarse_e"]).matvec(x)
+    y0 = mt._coarse_operator("coarse_e").matvec(x)
     assert _rel(y0, y) < 1e-12
