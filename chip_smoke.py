@@ -24,12 +24,13 @@ Phases (any failed check raises, and the script exits non-zero):
      The assembled block cases (vblock_matvec, ops/assembled.py): the
      iterative coarse level's P1-P1 saddle "full_pp" and its pressure
      coupling "up", its P1 vector velocity block and viscous smoother
-     "uu" (3x3 blocks; the two-grid's element coarse level in 9c), and
-     the P2-P1 pressure coupling "up" (P2 nodes x vertices) are held
-     against their plain version at the same bars, with a second
+     "uu" (3x3 blocks; the two-grid's element coarse level in 9c), the
+     P2-P1 pressure coupling "up" (P2 nodes x vertices) and the P1
+     pressure mass "scalar" (one value a vertex pair, every branch) are
+     held against their plain version at the same bars, with a second
      application bitwise equal to the first (the kernel has no
-     atomics), and timed with a cold L2 beside K1 on the same
-     operator's element tensors and the CSR call
+     atomics), and timed with a cold L2 beside K1 (K2 for the mass) on
+     the same operator's element tensors and the CSR call
      (kernel_bench.measure_assembled).
   3c. edge cases: every phase-3 case with the cells in a shuffled order
      (the widest block dof lists) and with blocks of 12 or 20 cells (a
@@ -43,10 +44,14 @@ Phases (any failed check raises, and the script exits non-zero):
   4. slice: PGModel on bowl3D(0.08, 0.5, nz=9) in f32 (the bench.py
      mixing configuration): set_b, invert, 10 BDF2 steps.  Every state
      is finite, every solve stays under its iteration cap, every kernel
-     of the path launched and no plain version ran; the coarse level
-     and the P2-P1 coupling went through the assembled block kernel
-     ("full_pp", "up" and "uu") and K1 launched no P1-P1 "full_pp" or
-     "up", no P1 vector "uu" and no P2-P1 "up" (check_path).
+     of the path launched and no plain version ran; the coarse level,
+     the P2-P1 coupling and the P1 pressure mass went through the
+     assembled block kernel ("full_pp", "up", "uu" and "scalar"), K1
+     launched no P1-P1 "full_pp" or "up", no P1 vector "uu" and no P2-P1
+     "up", and K2 launched only for the evolution matrix: none at the
+     P1 local size where the buoyancy's differs, and as many times as
+     the evolution's CG solves apply it (each step's CG iterations +
+     2) in every single-device run (check_path, run_checked).
   3b. probes vs plain: K3 stream_saddle and K1 pinned on the slice's
      element tensors in f32 and f64, K4 stream_probe in f32 on
      profile_stream's shapes.  Bars: K1 pinned as phase 3; K3 and K4
@@ -117,8 +122,9 @@ Phases (any failed check raises, and the script exits non-zero):
          h = 0.06 (21,219 DoF), 50 f32 BDF2 steps; save_vtk to out/,
          overturning_streamfunction on Grid3.from_mesh(mesh, 32, 64,
          32) and cfl_map, every output finite; then tools.eigen's
-         evolution_spectrum and preconditioned_inversion_spectrum (k =
-         6) on the same mesh in f64, with their matvec counts.
+         evolution_spectrum (K2) and preconditioned_inversion_spectrum
+         (K1 and the assembled mass, no K2) (k = 6) on the same mesh in
+         f64, with their matvec counts.
      Each model (9a, both 9c branches, 9d): before its run, every kernel
      case of its path (each mode and local size, the two-grid's P1
      vector block and the channel's periodic dof tables included) on
@@ -282,6 +288,7 @@ import numpy as np
 ROOT = pathlib.Path(__file__).resolve().parent
 REPLACES = {"saddle_matvec": "nupgcm_tpu/ops/window.py:769",
             "vblock_matvec": "nupgcm_tpu/ops/window.py:769",
+            "vblock_matvec[scalar]": "nupgcm_tpu/ops/window.py:865",  # by name before entry
             "scalar_matvec": "nupgcm_tpu/ops/window.py:865",
             "saddle_matvec[pinned]": "tools/profile_matvec.py:203",
             "stream_saddle": "tools/profile_matvec.py:174",
@@ -295,10 +302,11 @@ SOURCES = {"saddle_matvec": "nupgcm_tpu_torch/csrc/element_matvec.cu",
 BARS = {"float32": 2e-6, "float64": 1e-12}
 RESUME_BAR = 1e-4          # phase 8a (f64), relative to max|u| and max|b|
 # the single-device step: the iterative coarse level's saddle and coupling,
-# the coarse P1 vector velocity blocks and the P2-P1 coupling through the
-# assembled block kernel; DD keeps K1 for them on its shards
+# the coarse P1 vector velocity blocks, the P2-P1 coupling and the P1
+# pressure mass through the assembled block kernel; DD keeps K1/K2 for
+# them on its shards
 STEP_COUNTERS = ("saddle_full", "saddle_uu", "scalar", "vblock_full_pp", "vblock_up",
-                 "vblock_uu")
+                 "vblock_uu", "vblock_scalar")
 INVERT_COUNTERS = tuple(k for k in STEP_COUNTERS if k != "scalar")
 DD_COUNTERS = ("saddle_full", "saddle_full_pp", "saddle_uu", "saddle_up", "scalar")
 # K1's shapes of the operators the single device applies from assembled
@@ -676,9 +684,12 @@ def check_path(model, K, tag, counters=STEP_COUNTERS):
     level, the P2-P1 coupling's where the preconditioner is
     block-triangular) and no plain version ran; on the single-device
     path (``counters`` with the assembled block kernel) the P2-P1
-    coupling launched from its assembled blocks, and K1 ran none of the
-    operators the model applies from them (ASSEMBLED_K1).  Returns the
-    launches (``counts``)."""
+    coupling and the P1 pressure mass launched from their assembled
+    blocks, K1 ran none of the operators the model applies from them
+    (ASSEMBLED_K1), and K2 none at the P1 local size where the
+    buoyancy's differs (there K2 runs the evolution matrix alone;
+    run_checked counts its launches where the sizes agree).  Returns
+    the launches (``counts``)."""
     launches, plain = counts(K), dict(K.plain_calls)
     ops = model.ops
     needed = {"saddle_full_pp": "sc_uu" in ops, "vblock_full_pp": "sc_uu" in ops,
@@ -694,7 +705,22 @@ def check_path(model, K, tag, counters=STEP_COUNTERS):
               if v and (k.startswith("saddle_full_pp") or k in ASSEMBLED_K1)}
         check(not k1, f"{tag}: K1 ran an operator the model applies from assembled blocks: "
               f"{k1}")
+        nl_p = model.const["cd_p"].shape[1]
+        check(launches.get(f"vblock_scalar[{nl_p},{nl_p}]", 0) > 0,
+              f"{tag}: the P1 pressure mass never launched from its vertex blocks")
+        check(model.const["cd_b"].shape[1] == nl_p or not launches.get(f"scalar[{nl_p}]"),
+              f"{tag}: K2 launched at the P1 local size ({launches.get(f'scalar[{nl_p}]')} "
+              "times): the P1 pressure mass left its vertex blocks")
     return launches
+
+
+def check_k2_is_evolution(launches, auxs, tag):
+    """On the single device K2 runs the evolution matrix alone: each
+    step's CG applies it its iterations + 2 times (the Dirichlet lift and
+    the first residual), and nothing else launches K2."""
+    want = sum(int(a["evo_iters"]) + 2 for a in auxs)
+    check(launches["scalar"] == want, f"{tag}: K2 launched {launches['scalar']} times, the "
+          f"evolution's CG {want}: another operator ran on K2")
 
 
 def run_checked(model, state, K, tag, card_name, inv_capped_ok=False, **run_kw):
@@ -750,6 +776,7 @@ def run_checked(model, state, K, tag, card_name, inv_capped_ok=False, **run_kw):
     for f in ("u", "p", "b", "u_prev", "b_prev"):
         check(bool(torch.isfinite(getattr(state, f)).all()), f"{tag}: non-finite {f}")
     check_path(model, K, tag)
+    check_k2_is_evolution(launches, auxs, tag)
     return state, auxs
 
 
@@ -1084,9 +1111,12 @@ def phase_channel(K, card_name):
               f"{np.abs(vals).max():.4e}; launches { {k: v for k, v in launches.items() if v} }"
               f" ({card_name})", flush=True)
         check(len(vals) == 6 and np.isfinite(vals).all(), f"9d: {name} is not finite")
-        check(launches["scalar"] > 0 and (name == "evolution_spectrum"
-                                          or launches["saddle_full"] > 0),
-              f"9d: {name} ran no kernel")
+        if name == "evolution_spectrum":
+            check(launches["scalar"] > 0, f"9d: {name} ran no kernel")
+        else:
+            check(launches["saddle_full"] > 0 and launches["vblock_scalar"] > 0
+                  and not launches["scalar"],
+                  f"9d: {name} ran no K1, or its P1 pressure mass not on its vertex blocks")
         check(all(v == 0 for v in plain.values()), f"9d: a plain version ran in {name}")
 
 
@@ -1740,6 +1770,7 @@ def main():
           f"a kernel of the path never launched: {launches}")
     check(all(n == 0 for n in plain.values()), f"a plain version ran on the card: {plain}")
     check_path(model, K, "slice")  # and K1 ran none of the assembled operators
+    check_k2_is_evolution(launches, stats, "slice")  # the invert launched no K2
 
     for r in results.values():
         r["launches"], r["path"] = launches.get(r["counter"], 0), "4b slice steps"
@@ -1761,7 +1792,8 @@ def main():
     # 3c on P1 triangles: bowl2D on the iterative coarse level
     tri = mixing_setup(npg.generators.bowl2D(0.1, 0.5), "cuda", torch.float32,
                        coarse_dense_max=16)
-    check(bool(kb.assembled_cases(tri)), "edges 2D: bowl2D took no iterative coarse level")
+    check(any(c["mode"] == "full_pp" for c in kb.assembled_cases(tri)),
+          "edges 2D: bowl2D took no iterative coarse level")
     check_kernels(tri, K, "edges 2D coarse")
     phase_edges(tri, K, "edges 2D coarse")
     del tri
@@ -1793,7 +1825,8 @@ def main():
             r["launches"], r["path"] = dd_launches.get(r["counter"], 0), "10b DD steps"
     kernels = [
         {"name": r["name"], "route": "cuda", "source": SOURCES[r["entry"]],
-         "replaces": REPLACES[r["entry"]], "launches": r["launches"], "path": r["path"],
+         "replaces": REPLACES.get(r["name"], REPLACES[r["entry"]]), "launches": r["launches"],
+         "path": r["path"],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
          "device_ms": r["device_ms"], "graph_ms": r["graph_ms"],

@@ -31,10 +31,11 @@ or, with ``saddle_coarse=False, twogrid=True``, the u-block two-grid (a
 P1-vertex coarse level of the velocity block: dense inverse on small
 meshes, inner CG on the assembled P1 operator on large ones).  The
 block-triangular preconditioner applies the P2-P1 pressure coupling
-from its assembled blocks (P2 nodes x vertices).  The model holds one
-assembled operator per element tensor it applies so (``_held``, and
-``_sc_op`` for the coarse saddle), refilled in place wherever the
-tensor is written.
+from its assembled blocks (P2 nodes x vertices), and every
+preconditioner the P1 pressure mass from its vertex blocks.  The model
+holds one assembled operator per element tensor it applies so
+(``_held``, and ``_sc_op`` for the coarse saddle), refilled in place
+wherever the tensor is written.
 """
 
 from __future__ import annotations
@@ -406,19 +407,21 @@ class PGModel:
                                                self.device)
         # assembled operators (ops/assembled.py), one per element tensor
         # of ``ops``: the pattern once per mesh, the blocks refilled from
-        # the tensors wherever they are written (``_refill``).  The P1
-        # vector velocity operators of the coarse level (the iterative
-        # saddle coarse level's uu block and visc surrogate, or the
-        # two-grid's element coarse level) and the iterative saddle
-        # coarse operator on the vertex pattern; the P2-P1 pressure
-        # coupling of the block-triangular preconditioner on P2 nodes x
-        # vertices.  build_seconds["patterns"]: the patterns' seconds
+        # the tensors wherever they are written (``_refill``).  On the
+        # vertex pattern the P1 pressure mass (every preconditioner),
+        # the P1 vector velocity operators of the coarse level (the
+        # iterative saddle coarse level's uu block and visc surrogate,
+        # or the two-grid's element coarse level) and the iterative
+        # saddle coarse operator; the P2-P1 pressure coupling of the
+        # block-triangular preconditioner on P2 nodes x vertices.
+        # build_seconds["patterns"]: the patterns' seconds
         self._sync()
         t0 = time.perf_counter()
-        self._held = {}
+        c["vblk_coarse"] = vertex_pattern(c["cd_p"], sp.p_space.ndof)
+        self._held = {"Mp_e": AssembledBlocks(c["vblk_coarse"], "scalar", self.dtype,
+                                              c["cd_p"])}
         iterative_sc = self.saddle_coarse and not self.saddle_coarse_dense
         if iterative_sc or (self.twogrid and not self.coarse_dense):
-            c["vblk_coarse"] = vertex_pattern(c["cd_p"], sp.p_space.ndof)
             for k in ("sc_uu", "sc_visc_e") if iterative_sc else ("coarse_e",):
                 self._held[k] = AssembledBlocks(c["vblk_coarse"], "uu", self.dtype, c["cd_p"])
         if iterative_sc:
@@ -429,7 +432,6 @@ class PGModel:
         self._sync()
         self.build_seconds["patterns"] = time.perf_counter() - t0
         c["blk_b"] = blocks.scalar_table(fe.cd_b, item, self.device)
-        c["blk_p"] = blocks.scalar_table(fe.cd_p, item, self.device)
         c["h_cells"] = T(fe.h_cells)
         c["Gb3"] = asm.physical_grads(c["invJT"], c["dphi_b"], c["embed"])
         if self.saddle_coarse:
@@ -913,6 +915,7 @@ class PGModel:
         (ops["B_e"], ops["M_e"], ops["Kh_e"], ops["Kv_e"], rd_e,
          ops["Mp_e"], pv_e) = self._chunked_cells(
             build_small, c["wq"], c["kh_q"], c["kv_q"], c["Gb3"])
+        self._refill(ops, ("Mp_e",))
 
         # wind-stress rhs over the combined (u, p) vector
         wind = asm.elem_wind_rhs(c["wq_surf"], c["taux_q"], c["tauy_q"],
@@ -924,7 +927,7 @@ class PGModel:
         ops["p_volw"] = fe.vec_plan_p.assemble(pv_e)
 
         visc_op = MaskedOperator(self._visc_operator(ops["visc_e"]), c["free_u"])
-        mp_op = MaskedOperator(self._mp_operator(ops), c["free_inv"][sp.n_u:])
+        mp_op = MaskedOperator(self._mp_operator(), c["free_inv"][sp.n_u:])
         # preconditioner diagonals and spectral bounds: the visc/Mp
         # tensors never change in-step
         ops["visc_dinv"] = 1.0 / visc_op.diagonal()
@@ -979,9 +982,10 @@ class PGModel:
                                cd=self.const["cd_b"], n=self.fe.spaces.n_b,
                                table=self.const["blk_b"])
 
-    def _mp_operator(self, ops) -> ElementOperator:
-        return ElementOperator(Ae=ops["Mp_e"], cd=self.const["cd_p"],
-                               n=self.fe.spaces.n_p, table=self.const["blk_p"])
+    def _mp_operator(self) -> AssembledBlocks:
+        """The held P1 pressure mass on its vertex blocks, filled from the
+        last write of ``ops["Mp_e"]``."""
+        return self._held["Mp_e"]
 
     def _make_inv_precond(self, ops):
         """(M, flexible) for the inversion FGMRES."""
@@ -992,7 +996,7 @@ class PGModel:
             return (lambda r: r / scale), False
         Amat = self._inv_matrix(ops)
         visc_op = MaskedOperator(self._visc_operator(ops["visc_e"]), c["free_u"])
-        mp_op = MaskedOperator(self._mp_operator(ops), c["free_inv"][n_u:])
+        mp_op = MaskedOperator(self._mp_operator(), c["free_inv"][n_u:])
         # full (nonsymmetric) velocity block for the inner_gmres method
         ublock_op = MaskedOperator(self._visc_operator(ops["A_uu_e"]), c["free_u"])
         iu, ip = self.inner_iters

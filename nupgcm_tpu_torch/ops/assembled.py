@@ -23,17 +23,18 @@ element ``SaddleOperator`` they stand for:
 * ``AssembledBlocks`` -- one operator in one mode: "uu", a P1 vector
   velocity block (3x3 blocks over the vertex pattern; the coarse level's
   velocity block and viscous smoother, the
-  u-block two-grid's coarse level), or "up", the P2-P1 inversion
+  u-block two-grid's coarse level), "up", the P2-P1 inversion
   operator's pressure coupling (3x1 blocks, rows u_x, u_y, u_z of a P2
-  node against a vertex).
+  node against a vertex), or "scalar", the P1 pressure mass (one value
+  a block over the vertex pattern).
 
 Each operator's blocks are allocated once and scattered from the
 element tensors by ``index_add_`` over ``slot`` (``fill``, in place,
 whenever the model's element tensors change); its kernel launch is
 prepared on first use.  A model holds one operator per element tensor
 for its every solve.  ``diagonal`` reads the element tensors of the last
-``fill``, as the element ``SaddleOperator`` does, so both give the same
-bits.
+``fill``, as the element ``SaddleOperator`` and ``ElementOperator`` do,
+so both give the same bits.
 
 Padded cells carry zero tensors and repeat node 0 (models/fedata.py),
 so they add zeros to an existing block.  A periodic slave vertex (and
@@ -48,7 +49,7 @@ from dataclasses import dataclass
 import torch
 
 from . import kernels
-from .element import saddle_diagonal
+from .element import saddle_diagonal, scalar_diagonal
 
 
 @dataclass
@@ -169,7 +170,10 @@ class AssembledBlocks(_Applies):
           blocks ``vals`` (n_blocks, 9), row-major.
     "up": a pressure coupling, u rows (3 n_rows) from p (n_cols), from
           element tensors (nc, 3 nl_r, nl_c) (the P2-P1 ``A_up_e``); 3x1
-          blocks ``vals`` (n_blocks, 3)."""
+          blocks ``vals`` (n_blocks, 3).
+    "scalar": a scalar operator over p (n_rows) from element tensors
+          (nc, nl, nl) over ``cd`` (the P1 pressure mass ``Mp_e``); one
+          value a block, ``vals`` (n_blocks, 1)."""
 
     def __init__(self, pattern: VertexPattern, mode: str, dtype: torch.dtype,
                  cd: torch.Tensor = None):
@@ -186,6 +190,8 @@ class AssembledBlocks(_Applies):
         nl_r, nl_c = self.pattern.sizes
         if self.mode == "uu":
             eb = e.reshape(nc, nl_r, 3, nl_c, 3).permute(0, 1, 3, 2, 4).reshape(-1, 9)
+        elif self.mode == "scalar":
+            eb = e.reshape(-1, 1)
         else:
             eb = e.reshape(nc, nl_r, 3, nl_c).permute(0, 1, 3, 2).reshape(-1, 3)
         self.vals.zero_().index_add_(0, self.pattern.slot.reshape(-1).long(), eb)
@@ -196,5 +202,8 @@ class AssembledBlocks(_Applies):
         return self._apply(self.vals, x, self.mode)
 
     def diagonal(self) -> torch.Tensor:
-        """Assembled diagonal of a "uu" operator (3 n_rows)."""
+        """Assembled diagonal of a "uu" (3 n_rows) or "scalar" (n_rows)
+        operator."""
+        if self.mode == "scalar":
+            return scalar_diagonal(self.e, self.cd, self.pattern.n_rows)
         return saddle_diagonal(self.e, None, self.cd, self.pattern.n_rows)

@@ -59,8 +59,7 @@ class ElementOperator:
         return xe.new_zeros(self.n).index_add_(0, self.cd.reshape(-1).long(), xe.reshape(-1))
 
     def diagonal(self) -> torch.Tensor:
-        de = torch.diagonal(self.Ae, dim1=1, dim2=2)
-        return self.Ae.new_zeros(self.n).index_add_(0, self.cd.reshape(-1).long(), de.reshape(-1))
+        return scalar_diagonal(self.Ae, self.cd, self.n)
 
 
 @dataclass
@@ -148,3 +147,10 @@ def saddle_diagonal(uu, pp, cd_u, n_u_nodes, cd_p=None, n_p=0) -> torch.Tensor:
     if pp is not None:
         dp.index_add_(0, cd_p.reshape(-1).long(), torch.diagonal(pp, dim1=1, dim2=2).reshape(-1))
     return torch.cat([du, dp])
+
+
+def scalar_diagonal(ae, cd, n) -> torch.Tensor:
+    """Assembled diagonal (n) of a scalar operator's element tensors
+    ae (nc, nl, nl) over the dof table cd (nc, nl)."""
+    de = torch.diagonal(ae, dim1=1, dim2=2)
+    return ae.new_zeros(n).index_add_(0, cd.reshape(-1).long(), de.reshape(-1))

@@ -22,10 +22,11 @@ from their assembled form (``ops/assembled.py``):
   node that share a cell, in CSR order, in modes "full_pp" (4x4 blocks
   of the P1-P1 coarse saddle), "up" (3x1 pressure-gradient columns: the
   coarse saddle's, from their own copy, or the P2-P1 inversion
-  operator's over P2 nodes x vertices) and "uu" (3x3 blocks of a P1
-  vector velocity operator); it replaces
-  ``window.py::saddle_matvec`` in those modes on those operators.
-  ``VBlockLaunch`` prepares it.
+  operator's over P2 nodes x vertices), "uu" (3x3 blocks of a P1
+  vector velocity operator) and "scalar" (one value a block: the P1
+  pressure mass); it replaces ``window.py::saddle_matvec`` in the
+  first three modes on those operators and ``window.py::scalar_matvec``
+  on the mass.  ``VBlockLaunch`` prepares it.
 
 Operators applied many times hold a ``PreparedLaunch``
 (``saddle_launch``, ``scalar_launch``): the tensors, tables and shapes
@@ -73,7 +74,7 @@ from . import blocks, build
 SADDLE_MODES = ("full", "full_pp", "uu", "up")
 LANES = 128  # the TPU kernels' lane width: one grid block of cells
 
-VBLOCK_MODES = ("full_pp", "up", "uu")
+VBLOCK_MODES = ("full_pp", "up", "uu", "scalar")
 launches = {**{f"saddle_{m}": 0 for m in SADDLE_MODES}, "scalar": 0,
             "saddle_full_pinned": 0, "stream_saddle": 0, "stream_probe": 0,
             **{f"vblock_{m}": 0 for m in VBLOCK_MODES}}
@@ -81,8 +82,9 @@ plain_calls = {"saddle": 0, "scalar": 0, "stream_saddle": 0, "stream_probe": 0, 
 # launches per mode and local sizes, e.g. "saddle_uu[10,0]" (the P2
 # velocity block), "scalar[10]" or "vblock_up[10,4]" (the assembled
 # P2-P1 coupling: the local sizes of its row and column dof tables, so
-# that it differs from the coarse level's "vblock_up[4,4]"); keys
-# appear when a launch is prepared
+# that it differs from the coarse level's "vblock_up[4,4]") or
+# "vblock_scalar[4,4]" (the P1 pressure mass); keys appear when a
+# launch is prepared
 shape_launches = {}
 
 
@@ -150,10 +152,10 @@ def stream_saddle_plain(uu, up, pu, carry):
 
 def vblock_matvec_plain(vals, col, row, x, mode, n_rows):
     """Plain version of ``vblock_matvec``: gather x by column, one
-    batched 4x4, 3x3 or 3x1 product per block, then a segment sum by
-    row (``index_add_`` over each block's row)."""
+    batched 4x4, 3x3, 3x1 or 1x1 product per block, then a segment sum
+    by row (``index_add_`` over each block's row)."""
     c, r = col.long(), row.long()
-    if mode == "up":
+    if mode in ("up", "scalar"):
         yb = vals * x[c][:, None]
     elif mode == "uu":
         yb = torch.einsum("krs,ks->kr", vals.view(-1, 3, 3), x.view(-1, 3)[c])
@@ -162,7 +164,7 @@ def vblock_matvec_plain(vals, col, row, x, mode, n_rows):
         xb = torch.cat([x[:n3].view(-1, 3)[c], x[n3:][c][:, None]], dim=1)
         yb = torch.einsum("kij,kj->ki", vals.view(-1, 4, 4), xb)
     y = yb.new_zeros((n_rows, yb.shape[1])).index_add_(0, r, yb)
-    if mode in ("up", "uu"):
+    if mode != "full_pp":
         return y.reshape(-1)
     return torch.cat([y[:, :3].reshape(-1), y[:, 3]])
 
@@ -454,13 +456,13 @@ def scalar_matvec(ae, cd, x):
 # the assembled block kernel (csrc/vertex_block_matvec.cu)
 # ----------------------------------------------------------------------
 
-VBLOCK_WIDTH = {"full_pp": 16, "up": 3, "uu": 9}  # values per block
+VBLOCK_WIDTH = {"full_pp": 16, "up": 3, "uu": 9, "scalar": 1}  # values per block
 
 
 def vblock_lengths(mode: str, n_rows: int, n_cols: int) -> tuple:
     """(len(x), len(y)) of ``mode`` on a pattern of n_rows x n_cols nodes."""
     return {"full_pp": (4 * n_rows, 4 * n_rows), "up": (n_cols, 3 * n_rows),
-            "uu": (3 * n_rows, 3 * n_rows)}[mode]
+            "uu": (3 * n_rows, 3 * n_rows), "scalar": (n_rows, n_rows)}[mode]
 
 
 class _VbParams(ctypes.Structure):
@@ -472,6 +474,7 @@ class _VbParams(ctypes.Structure):
 
 
 _vb_prepared = {}  # (mode, f64, n_rows, n_cols, device) -> (grid, launcher)
+# the C side takes the element kernel's mode ids (_MODE_ID): "scalar" is K2's
 
 
 def check_vblock(vals, col, row_ptr, mode: str) -> int:
@@ -559,13 +562,15 @@ def vblock_matvec(vals, col, row_ptr, row, x, mode: str, n_cols: int = None,
 
     vals (n_blocks, 16) 4x4 blocks, rows and columns [u_x, u_y, u_z, p];
     or (n_blocks, 3) 3x1 pressure-gradient columns; or (n_blocks, 9) 3x3
-    velocity blocks, row-major; col and row (n_blocks,) int32
+    velocity blocks, row-major; or (n_blocks, 1) the entries of a scalar
+    operator; col and row (n_blocks,) int32
     the blocks' column and row nodes, sorted by row then column; row_ptr
     (n_rows + 1,) int32 the rows' block offsets; n_cols the column
     count ("up" on a rectangular pattern; the row count by default).
       "full_pp": x, y = [u (3 n_rows, node-major), p (n_rows)]
       "up":      x = p (n_cols), y = u (3 n_rows)
       "uu":      x, y = u (3 n_rows, node-major)
+      "scalar":  x, y = p (n_rows)
     On a CUDA device this prepares the launch for one call (``sizes``, the
     pattern's local sizes, name it); operators that apply many times
     hold a ``VBlockLaunch``."""

@@ -33,14 +33,15 @@ The model applies some operators through the assembled block kernel
 (``ops/assembled.py``, ``csrc/vertex_block_matvec.cu``): the iterative
 coarse level's P1-P1 saddle ("full_pp") and pressure coupling ("up"),
 the P1 vector velocity blocks of the coarse level ("uu": its velocity
-block and viscous smoother, or the two-grid's element coarse level) and
-the P2-P1 pressure coupling ("up" on P2 nodes x vertices).
-``kernel_cases`` keeps their K1 cases (the DD path's, and the single
-device's before the redesign), over K1 tables built here, since the
-model holds none for them.  ``assembled_cases`` times each assembled
-case beside K1 on the same operator's element tensors and beside the
-CSR call, in turns (new, K1, CSR, CSR, K1, new), every reading with a
-cold L2: at the 0.87M-DoF bowl the f32 blocks (36.5 MB) fit in the H100's 50 MB L2,
+block and viscous smoother, or the two-grid's element coarse level),
+the P2-P1 pressure coupling ("up" on P2 nodes x vertices) and the P1
+pressure mass ("scalar").  ``kernel_cases`` keeps their K1/K2 cases
+(the DD path's, and the single device's before the redesign), over
+K1/K2 tables built here, since the model holds none for them.
+``assembled_cases`` times each assembled case beside K1 (K2 for the
+mass: the ``k1_*`` keys of its record) on the same operator's element
+tensors and beside the CSR call, in turns (new, K1, CSR, CSR, K1, new),
+every reading with a cold L2: at the 0.87M-DoF bowl the f32 blocks (36.5 MB) fit in the H100's 50 MB L2,
 where back-to-back calls would read them at L2 speed, below the HBM
 bound, while in the step the L2 is cold (the aggregate level's inverse,
 580 MB, and the fine operators pass through it between two coarse
@@ -123,9 +124,9 @@ def kernel_cases(model, Kv_e=None):
                     cd=(cd_u, cd_p), key=key if has_tables else None, n_x=n_x,
                     n_nodes=n_nodes, n_p=n_p if mode != "uu" else 0, **kw)
 
-    def scalar(label, ae, cd, key, n):
+    def scalar(label, ae, cd, key, n, **kw):
         return dict(entry="scalar_matvec", mode=None, label=label, blocks=(ae,), cd=(cd,),
-                    key=key if has_tables else None, n_x=n, n_nodes=None, n_p=0)
+                    key=key if has_tables else None, n_x=n, n_nodes=None, n_p=0, **kw)
 
     def k1(modes, fine=False):
         """K1 tables the model does not hold (it applies these operators
@@ -163,9 +164,22 @@ def kernel_cases(model, Kv_e=None):
                             None, nv, 0, tables=k1(("uu",))["uu"]))
     cases += [
         scalar(f"P{sp.b_order} buoyancy evolution matrix", evo, c["cd_b"], "blk_b", sp.n_b),
-        scalar("P1 pressure mass", o["Mp_e"], c["cd_p"], "blk_p", sp.n_p),
     ]
+    if "blk_p" in c:  # an older tree's K2 table of the mass
+        cases.append(scalar("P1 pressure mass", o["Mp_e"], c["cd_p"], "blk_p", sp.n_p))
+    else:
+        cases.append(scalar("P1 pressure mass", o["Mp_e"], c["cd_p"], None, sp.n_p,
+                            tables=scalar_table(model) if has_tables else None))
     return cases
+
+
+def scalar_table(model):
+    """K2's block table over the P1 dof table, for the model's dtype and
+    on its device."""
+    from nupgcm_tpu_torch.ops import blocks
+
+    item = torch.empty((), dtype=model.dtype).element_size()
+    return blocks.scalar_table(model.fe.cd_p, item, model.device)
 
 
 def kernel_tables(model, modes, fine=False):
@@ -185,9 +199,10 @@ def assembled_cases(model):
     pattern, the pattern's dof tables and node counts ("pcd": cd_r,
     n_rows, cd_c, n_cols), the element tensors the values are filled
     from ("fill": the coarse saddle's four, or one), in "blocks" the K1
-    case's element tensors (the time before the redesign, and the CSR
-    yardstick's operator) and "fine" where K1 ran it over the P2-P1
-    tables.  Empty where the model (or the tree) applies none."""
+    (K2 for "scalar") case's element tensors (the time before the
+    redesign, and the CSR yardstick's operator) and "fine" where K1 ran
+    it over the P2-P1 tables.  Empty where the model (or the tree)
+    applies none."""
     c, o, sp = model.const, model.ops, model.fe.spaces
     held = getattr(model, "_held", {})  # an older tree holds the coarse saddle alone
     nu, nv = sp.u_space.ndof, sp.p_space.ndof
@@ -195,7 +210,8 @@ def assembled_cases(model):
     def case(name, mode, label, pattern, pcd, fill, blocks, cd, n_nodes, n_p, fine=False):
         return dict(entry="vblock_matvec", name=name, mode=mode, label=label, pattern=pattern,
                     pcd=pcd, fill=fill, blocks=blocks, cd=cd, fine=fine,
-                    n_x={"full_pp": 4 * n_nodes, "uu": 3 * n_nodes, "up": n_p}[mode],
+                    n_x={"full_pp": 4 * n_nodes, "uu": 3 * n_nodes, "up": n_p,
+                         "scalar": n_p}[mode],
                     n_nodes=n_nodes, n_p=n_p)
 
     cases = []
@@ -213,6 +229,10 @@ def assembled_cases(model):
         if key in held:
             cases.append(case("vblock_matvec[uu]", "uu", label, c["vblk_coarse"], p1, (o[key],),
                               (o[key], None, None, None), (c["cd_p"], c["cd_none"]), nv, 0))
+    if "Mp_e" in held:
+        cases.append(case("vblock_matvec[scalar]", "scalar", "P1 pressure mass, assembled",
+                          c["vblk_coarse"], p1, (o["Mp_e"],), (o["Mp_e"],), (c["cd_p"],), nv,
+                          sp.n_p))
     if "A_up_e" in held:
         cases.append(case("vblock_matvec[up P2-P1]", "up", "P2-P1 pressure coupling, assembled",
                           c["vblk_up"], (c["cd_u"], nu, c["cd_p"], sp.n_p), (o["A_up_e"],),
@@ -267,7 +287,7 @@ def case_fns(model, K, case, dtype):
                 (lambda: K.vblock_matvec_plain(vals, pat.col, pat.row, x, mode, pat.n_rows)), x)
     if case["mode"] is None:
         plain = lambda: K.scalar_matvec_plain(blocks[0], cd[0], x)
-        if case["key"] is None:
+        if case["key"] is None and case.get("tables") is None:
             return (lambda: K.scalar_matvec(blocks[0], cd[0], x)), plain, x
         table = case.get("tables") or model.const[case["key"]]
         launch = K.scalar_launch(blocks[0], table, case["n_x"])
@@ -286,7 +306,7 @@ def operator_csr(case, blocks, n_x):
     """The operator of a kernel case assembled to CSR (COO triples
     summed): the library yardstick's input."""
     mode = case["mode"]
-    if mode is None:  # scalar
+    if mode in (None, "scalar"):  # a scalar operator
         ae, (cd,) = blocks[0], case["cd"]
         cdl = cd.long()
         nl = cd.shape[1]
@@ -489,17 +509,20 @@ def rotating(make, nbytes_one):
 
 
 def measure_assembled(model, K, case, log=print, tag="kernels"):
-    """f32 times of an assembled case: the block kernel, K1 on the
-    same operator's element tensors and the CSR call, in turns (new, K1,
-    CSR, CSR, K1, new), each over rotating copies of its inputs (a cold
-    L2 on every call); the CUDA-graph replays of the new kernel and K1;
-    the bounds; the plain time."""
+    """f32 times of an assembled case: the block kernel, K1 (K2 for
+    "scalar") on the same operator's element tensors and the CSR call,
+    in turns (new, K1, CSR, CSR, K1, new), each over rotating copies of
+    its inputs (a cold L2 on every call); the CUDA-graph replays of the
+    new kernel and K1; the bounds; the plain time."""
     mode, n_nodes = case["mode"], case["n_nodes"]
     kfn, pfn, x = case_fns(model, K, case, torch.float32)
     vals, pat = vblock_values(case, torch.float32)
     blocks = tuple(None if t is None else t.float().contiguous() for t in case["blocks"])
     csr = operator_csr(case, blocks, case["n_x"])
-    tables = kernel_tables(model, (mode,), case.get("fine", False))[mode]
+    if mode == "scalar":
+        table = scalar_table(model)
+    else:
+        tables = kernel_tables(model, (mode,), case.get("fine", False))[mode]
     y0 = pfn()
     scale = float(y0.abs().max())
     err = float((kfn() - y0).abs().max())
@@ -512,8 +535,11 @@ def measure_assembled(model, K, case, log=print, tag="kernels"):
         return lambda: launch(x)
 
     def make_k1():
-        launch = K.saddle_launch(*(None if t is None else t.clone() for t in blocks), tables,
-                                 mode, n_nodes, case["n_p"])
+        if mode == "scalar":
+            launch = K.scalar_launch(blocks[0].clone(), table, case["n_x"])
+        else:
+            launch = K.saddle_launch(*(None if t is None else t.clone() for t in blocks),
+                                     tables, mode, n_nodes, case["n_p"])
         return lambda: launch(x)
 
     def make_csr():
@@ -534,7 +560,7 @@ def measure_assembled(model, K, case, log=print, tag="kernels"):
         got = [v[t] for t, j in enumerate(order) if j == i and v[t] is not None]
         return sum(got) / len(got) if got else None
 
-    out_len = pat.n_rows * (4 if mode == "full_pp" else 3)
+    out_len = pat.n_rows * {"full_pp": 4, "uu": 3, "up": 3, "scalar": 1}[mode]
     y_bytes = out_len * vals.element_size()
     b_ms, b_by = bound(new_bytes + nbytes(x) + y_bytes, 2 * vals.numel())
     k1_ms, _ = bound(nbytes(*blocks, *case["cd"], x) + y_bytes,
@@ -542,7 +568,8 @@ def measure_assembled(model, K, case, log=print, tag="kernels"):
     lib_b_ms, _ = bound(nbytes(csr.values(), csr.col_indices(), csr.crow_indices(), x)
                         + y_bytes, 2 * csr.values().numel())
     rec = dict(entry=case["entry"], mode=mode, label=case["label"],
-               shape={"full_pp": [4, 4], "up": [3, 1], "uu": [3, 3]}[mode], nc=pat.n_blocks,
+               shape={"full_pp": [4, 4], "up": [3, 1], "uu": [3, 3], "scalar": [1, 1]}[mode],
+               nc=pat.n_blocks,
                n_blocks=pat.n_blocks, max_abs_err=err, rel_err=err / scale,
                lib_rel_err=lib_err / scale, ms=mean(turns, 0), library_ms=mean(turns, 2),
                device_ms=mean(dev, 0), graph_ms=g_ms[0], library_device_ms=mean(dev, 2),
@@ -554,7 +581,8 @@ def measure_assembled(model, K, case, log=print, tag="kernels"):
     fmt = lambda v: "n/m" if v is None else f"{v:.4f}"
     log(f"[{tag}] {case.get('name', 'vblock_matvec')} {rec['label']:34s} f32, cold L2 (copies "
         f"{rec['copies']}): kernel {fmt(rec['ms'])} ms (device {fmt(rec['device_ms'])}, graph "
-        f"replay {fmt(g_ms[0])}, host {rec['host_us']:.1f} us), K1 on the element tensors "
+        f"replay {fmt(g_ms[0])}, host {rec['host_us']:.1f} us), {'K2' if mode == 'scalar' else 'K1'}"
+        f" on the element tensors "
         f"{fmt(rec['k1_ms'])} ms (device {fmt(rec['k1_device_ms'])}, graph replay "
         f"{fmt(g_ms[1])}; its bound {k1_ms:.4f}), CSR {fmt(rec['library_ms'])} ms (device "
         f"{fmt(rec['library_device_ms'])}; its bound {lib_b_ms:.4f} ms), plain "

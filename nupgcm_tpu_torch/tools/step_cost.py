@@ -18,9 +18,9 @@ has settled and a step costs a fraction as much at either k:
                coarse level makes 136 and 64 times a step at k = 8),
                the coarse P1 vector velocity block's ``matvec`` (its
                viscous smoother's costs the same), the P2-P1 pressure
-               coupling's (once an outer FGMRES iteration), and the
-               inversion preconditioner's set-up (``_make_inv_precond``,
-               once a solve)
+               coupling's (once an outer FGMRES iteration), the P1
+               pressure mass's, and the inversion preconditioner's
+               set-up (``_make_inv_precond``, once a solve)
   profile      a ``cProfile`` of 3 steps: the functions with the most
                own time, each with its calls per step, and the step's
                total
@@ -37,7 +37,8 @@ assembled coarse operator (``PGModel._sc_op``) applies its element
 ``SaddleOperator`` (``_saddle_coarse_operator``), and one without the
 held assembled operators (``PGModel._held``) applies K1 for the coarse
 velocity block (``_coarse_operator`` of the tensor) and the P2-P1
-coupling (``_inv_matrix(...).up_matvec``).  Needs a CUDA device.
+coupling (``_inv_matrix(...).up_matvec``); one without a held mass
+applies K2 (``_mp_operator(ops)``).  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -86,6 +87,12 @@ def coupling(model):
     """The P2-P1 pressure coupling a solve applies, in either tree."""
     held = getattr(model, "_held", None)
     return held["A_up_e"].matvec if held is not None else model._inv_matrix(model.ops).up_matvec
+
+
+def mass(model):
+    """The P1 pressure mass a solve applies, in either tree."""
+    held = getattr(model, "_held", {})
+    return held["Mp_e"].matvec if "Mp_e" in held else model._mp_operator(model.ops).matvec
 
 
 def profile_steps(model, state, n=3):
@@ -143,10 +150,12 @@ def run(windows=5, log=print):
         share, pwall, _, _ = kb.busy_share(model, st0, n=3)
         launches = {key: v / 3 for key, v in K.shape_launches.items() if v}
         cop, vel, up = coarse_operator(model), velocity_operator(model), coupling(model)
+        mp = mass(model)
         costs = {"coarse_matvec_us": host_us(lambda: cop.matvec(x)),
                  "coarse_up_matvec_us": host_us(lambda: cop.up_matvec(xp)),
                  "coarse_uu_matvec_us": host_us(lambda: vel.matvec(xu)),
                  "coupling_matvec_us": host_us(lambda: up(xpf)),
+                 "mass_matvec_us": host_us(lambda: mp(xpf)),
                  "precond_setup_us": host_us(lambda: model._make_inv_precond(model.ops), 200)}
         rows, prof_s = profile_steps(model, st0)
         rec = dict(walls_s_3=walls, inv_iters=its[:3],
@@ -160,7 +169,8 @@ def run(windows=5, log=print):
             f"{rec['busy_ms_per_step']} ms a step; host us: coarse matvec "
             f"{costs['coarse_matvec_us']:.1f}, up_matvec {costs['coarse_up_matvec_us']:.1f}, "
             f"velocity block {costs['coarse_uu_matvec_us']:.1f}, P2-P1 coupling "
-            f"{costs['coupling_matvec_us']:.1f}, preconditioner set-up "
+            f"{costs['coupling_matvec_us']:.1f}, P1 mass {costs['mass_matvec_us']:.1f}, "
+            f"preconditioner set-up "
             f"{costs['precond_setup_us']:.1f}; cProfile "
             f"{rec['profiled_ms_per_step']:.1f} ms a step ({out['card']})")
         for r in rows[:12]:

@@ -257,14 +257,14 @@ def test_cpu_model_steps_through_the_assembled_plain_version(monkeypatch):
 def test_bench_cases_match_k1_and_the_csr_yardstick():
     """kernel_bench's assembled cases (chip_smoke.py phases 3 and 11c) on
     a CPU model: the vertex-block plain version on the case's values
-    equals K1's plain version on its element tensors and the CSR
-    product of the yardstick, at 1e-12 of max|y| (f64); the second
-    "full_pp" application is bitwise the first."""
+    equals K1's plain version on its element tensors (K2's for the P1
+    pressure mass) and the CSR product of the yardstick, at 1e-12 of
+    max|y| (f64); the second application is bitwise the first."""
     from nupgcm_tpu_torch.tools import kernel_bench as kb
 
     m = _eddy_model(npt, dtype=torch.float64, device="cpu")
     cases = kb.assembled_cases(m)
-    assert [c["mode"] for c in cases] == ["full_pp", "up", "uu", "uu", "up"]
+    assert [c["mode"] for c in cases] == ["full_pp", "up", "uu", "uu", "scalar", "up"]
     rng = np.random.default_rng(7)
     for case in cases:
         vals, pat = kb.vblock_values(case, torch.float64)
@@ -273,15 +273,18 @@ def test_bench_cases_match_k1_and_the_csr_yardstick():
         y = K.vblock_matvec_plain(vals, pat.col, pat.row, x, case["mode"], pat.n_rows)
         assert torch.equal(y, K.vblock_matvec_plain(vals, pat.col, pat.row, x, case["mode"],
                                                     pat.n_rows))
-        y0 = K.saddle_matvec_plain(*case["blocks"], *case["cd"], x, case["mode"],
-                                   case["n_nodes"])
+        if case["mode"] == "scalar":
+            y0 = K.scalar_matvec_plain(*case["blocks"], *case["cd"], x)
+        else:
+            y0 = K.saddle_matvec_plain(*case["blocks"], *case["cd"], x, case["mode"],
+                                       case["n_nodes"])
         y1 = torch.sparse.mm(kb.operator_csr(case, case["blocks"], case["n_x"]), x[:, None])[:, 0]
         for other in (y0, y1):
             assert float((y - other).abs().max()) <= 1e-12 * float(other.abs().max())
     # the model without an iterative coarse level has no coarse saddle case
     assert [c["mode"] for c in kb.assembled_cases(_eddy_model(
         npt, dtype=torch.float64, device="cpu", saddle_coarse=False, twogrid=True))] == [
-        "uu", "up"]
+        "uu", "scalar", "up"]
 
 
 def test_rotating_copies_evict_the_l2():

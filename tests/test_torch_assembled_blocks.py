@@ -11,13 +11,15 @@ SaddleOperator, on the same seeded element tensors and vectors, on a 3D
 bowl, a 2D bowl (triangles) and the x-periodic channel.  Bars: f64
 1e-12 max|y|, f32 2e-6 max|y| (summation order; the bars of
 tests/test_torch_kernels.py).  The rectangular pattern is checked
-against the dof tables; the model's held operators against fresh fills
-after each write of their element tensors (the eddy rebuild,
-refresh_precond, the ops setter); CPU models on the saddle-coarse and
-the two-grid element branches, and the north-star full physics through
-an eddy rebuild and a refresh, step with JAX's iteration counts.  The
-CUDA kernel itself runs only on the card (chip_smoke.py phases 3, 3c
-and 11c).
+against the dof tables; the model's held operators (the P1 pressure
+mass's "scalar" blocks among them) against fresh fills after each
+write of their element tensors (the eddy rebuild, refresh_precond, the
+ops setter); CPU models on every preconditioner branch (the iterative
+and the dense saddle coarse level, both two-grid branches, no coarse
+level), and the north-star full physics through an eddy rebuild and a
+refresh on the dense and the iterative coarse level, step with JAX's
+iteration counts.  The CUDA kernel itself runs only on the card
+(chip_smoke.py phases 3, 3c and 11c).
 """
 
 import ctypes
@@ -223,20 +225,30 @@ def _eddy_model(g, **kw):
         eddy_param=g.EddyParameterization(f=lambda x: 1.0 + 0.5 * x[1],
                                           N2_min=float(np.sqrt(1e-3))))
     return g.PGModel(g.FEData(mesh, spaces), params, forc,
-                     g.BDF2(t_start=0, t_stop=1e9, dt=1e-2), coarse_dense_max=256, **kw)
+                     g.BDF2(t_start=0, t_stop=1e9, dt=1e-2), **{"coarse_dense_max": 256, **kw})
 
 
-BRANCHES = {"saddle_coarse": {}, "twogrid": dict(saddle_coarse=False, twogrid=True)}
-HELD = {"saddle_coarse": ["sc_uu", "sc_visc_e", "A_up_e"], "twogrid": ["coarse_e", "A_up_e"]}
+DENSE = dict(coarse_dense_max=12288)  # the packages' default: dense coarse levels here
+BRANCHES = {"saddle_coarse": {}, "twogrid": dict(saddle_coarse=False, twogrid=True),
+            "dense_coarse": DENSE, "twogrid_dense": dict(saddle_coarse=False, twogrid=True,
+                                                         **DENSE),
+            "no_coarse": dict(saddle_coarse=False, twogrid=False)}
+# the held operators of each branch: its P1 vector blocks, then the P2-P1
+# coupling and the P1 pressure mass, which every branch holds
+COARSE_HELD = {"saddle_coarse": ["sc_uu", "sc_visc_e"], "twogrid": ["coarse_e"]}
+HELD = {b: [*COARSE_HELD.get(b, []), "A_up_e", "Mp_e"] for b in BRANCHES}
 
 
 def BIC(x):
     return 0.1 * np.exp(-(x[2] + 0.5 * (1 - x[0] ** 2 - x[1] ** 2)) / 0.05)
 
 
-def _k1_plain(m, ops, key, x):
-    """K1's plain version on the element tensor ``ops[key]``."""
+def _element_plain(m, ops, key, x):
+    """K1's plain version on the element tensor ``ops[key]`` (K2's on
+    the P1 pressure mass)."""
     c, sp = m.const, m.fe.spaces
+    if key == "Mp_e":
+        return K.scalar_matvec_plain(ops[key], c["cd_p"], x)
     if key == "A_up_e":
         return K.saddle_matvec_plain(None, ops[key], None, None, c["cd_u"], c["cd_p"], x, "up",
                                      sp.u_space.ndof)
@@ -249,10 +261,11 @@ def test_held_operators_follow_every_write(branch):
     """The model holds one assembled operator per element tensor it
     applies from blocks.  Each is refilled in place (its values tensor
     kept) wherever the tensor is written: the eddy rebuild (A_up_e),
-    refresh_precond (every one) and an ops dict set on the model; after
-    each, its values equal a fresh fill of the tensor and its products
-    K1's plain version (1e-12 of max|y|, f64).  Stale values are wiped
-    first, so a missing refill shows."""
+    refresh_precond (every one but the P1 pressure mass, which no
+    refresh writes) and an ops dict set on the model; after each, its
+    values equal a fresh fill of the tensor and its products K1's (K2's)
+    plain version (1e-12 of max|y|, f64).  Stale values are wiped first,
+    so a missing refill shows."""
     m = _eddy_model(npt, dtype=torch.float64, device="cpu", **BRANCHES[branch])
     keys = HELD[branch]
     assert sorted(m._held) == sorted(keys) and m.build_seconds["patterns"] >= 0
@@ -260,7 +273,8 @@ def test_held_operators_follow_every_write(branch):
     built = {k: v.clone() for k, v in vals0.items()}
     rng = np.random.default_rng(8)
     xs = {k: torch.as_tensor(rng.standard_normal(
-        m.fe.spaces.n_p if k == "A_up_e" else 3 * m.fe.spaces.p_space.ndof)) for k in keys}
+        m.fe.spaces.n_p if k in ("A_up_e", "Mp_e") else 3 * m.fe.spaces.p_space.ndof))
+        for k in keys}
 
     def follows(ops, ks):
         for k in ks:
@@ -268,7 +282,7 @@ def test_held_operators_follow_every_write(branch):
             assert op.vals is vals0[k], k
             fresh = A.AssembledBlocks(op.pattern, op.mode, torch.float64, op.cd).fill(ops[k])
             assert torch.equal(op.vals, fresh.vals), k
-            y, y0 = op.matvec(xs[k]), _k1_plain(m, ops, k, xs[k])
+            y, y0 = op.matvec(xs[k]), _element_plain(m, ops, k, xs[k])
             assert float((y - y0).abs().max()) <= 1e-12 * float(y0.abs().max()), k
 
     follows(m.ops, keys)
@@ -277,10 +291,11 @@ def test_held_operators_follow_every_write(branch):
     m._eddy_rebuild(m.ops, st)
     follows(m.ops, ["A_up_e"])
     for k in keys:
-        m._held[k].vals.zero_()
+        if k != "Mp_e":
+            m._held[k].vals.zero_()
     ops = m.refresh_precond(m.ops, st)
     follows(ops, keys)
-    coarse = [k for k in keys if k != "A_up_e"]
+    coarse = COARSE_HELD.get(branch, [])
     assert all(float((vals0[k] - built[k]).abs().max()) > 0 for k in coarse)  # nu changed
     copied = {k: v.clone() for k, v in ops.items()}
     for k in keys:
@@ -291,18 +306,22 @@ def test_held_operators_follow_every_write(branch):
 
 @pytest.mark.parametrize("branch", list(BRANCHES))
 def test_cpu_model_steps_through_the_assembled_blocks(branch, monkeypatch):
-    """A CPU PGModel on each branch applies its coarse P1 vector blocks and
-    its P2-P1 coupling through the block plain version, never through
-    K1's P1 "uu" or any K1 "up", and its steps take the JAX model's
-    iteration counts from the same state and tensors."""
+    """A CPU PGModel on each branch applies its coarse P1 vector blocks,
+    its P2-P1 coupling and its P1 pressure mass through the block plain
+    version, never through K1's P1 "uu" or any K1 "up", nor K2 on the
+    mass (K2 runs the P2 evolution matrix alone), and its steps take the
+    JAX model's iteration counts from the same state and tensors."""
     assert_same_rcm_branch()
     mt = _eddy_model(npt, dtype=torch.float64, device="cpu", **BRANCHES[branch])
     mj = _eddy_model(npj, **BRANCHES[branch])
     mt.ops = ops_from_numpy({k: np.asarray(v) for k, v in mj.ops.items()}, "cpu")
-    k1, vb = [], []
-    k1_plain, vb_plain = K.saddle_matvec_plain, K.vblock_matvec_plain
+    k1, k2, vb = [], [], []
+    k1_plain, k2_plain, vb_plain = (K.saddle_matvec_plain, K.scalar_matvec_plain,
+                                    K.vblock_matvec_plain)
     monkeypatch.setattr(K, "saddle_matvec_plain", lambda *a: k1.append(
         (a[7], a[4].shape[1], a[5].shape[1])) or k1_plain(*a))
+    monkeypatch.setattr(K, "scalar_matvec_plain", lambda *a: k2.append(
+        (a[1].shape[1], a[2].shape[0])) or k2_plain(*a))
     monkeypatch.setattr(K, "vblock_matvec_plain",
                         lambda *a: vb.append((a[4], a[5])) or vb_plain(*a))
     sj = mj.set_b(mj.rest_state(), BIC)
@@ -316,18 +335,29 @@ def test_cpu_model_steps_through_the_assembled_blocks(branch, monkeypatch):
         for f in ("u", "p", "b"):
             a, b = np.asarray(getattr(sj, f)), getattr(st, f).numpy()
             assert np.abs(a - b).max() <= 1e-9 * np.abs(a).max(), f
-    nu, nv = mt.fe.spaces.u_space.ndof, mt.fe.spaces.p_space.ndof
-    assert {("uu", nv), ("up", nu)} <= set(vb)
+    sp = mt.fe.spaces
+    nu, nv = sp.u_space.ndof, sp.p_space.ndof
+    coarse_uu = {("uu", nv)} if branch in COARSE_HELD else set()
+    assert {("up", nu), ("scalar", nv)} | coarse_uu <= set(vb)
+    assert (("uu", nv) in vb) == bool(coarse_uu)
     assert not [c for c in k1 if c[0] == "up" or (c[0] == "uu" and c[1] == 4)], k1
     assert ("full", 10, 4) in k1  # the fine operator stays on K1's path
+    assert set(k2) == {(mt.const["cd_b"].shape[1], sp.n_b)} and sp.n_b != sp.n_p, k2
 
 
-def test_northstar_full_steps_with_jax_counts(monkeypatch):
+NORTHSTAR_COARSE = {"dense": None, "iterative": 256}  # coarse_dense_max; None: the tool's
+
+
+@pytest.mark.parametrize("coarse", list(NORTHSTAR_COARSE))
+def test_northstar_full_steps_with_jax_counts(coarse, monkeypatch):
     """The north-star full physics (convection, eddy closure, wind) on a
-    coarse bowl: 10 steps (the eddy rebuild rewrites A_up_e in the
+    coarse bowl, on the tool's dense saddle coarse level and on the
+    iterative one: 10 steps (the eddy rebuild rewrites A_up_e in the
     tenth), refresh_precond, and 2 steps more, every step with the JAX
-    model's CG and FGMRES counts, the P2-P1 coupling on its assembled
-    blocks throughout."""
+    model's CG and FGMRES counts, the P2-P1 coupling and the P1 pressure
+    mass on their assembled blocks throughout."""
+    import functools
+
     from nupgcm_tpu.tools import northstar as nj
 
     from nupgcm_tpu_torch.tools import northstar as nt
@@ -337,9 +367,12 @@ def test_northstar_full_steps_with_jax_counts(monkeypatch):
     monkeypatch.setattr(npj.generators, "bowl3D", lambda h, a, nz: bowl_j(0.35, a, nz=3))
     monkeypatch.setattr(nt, "reference_mesh",
                         lambda: (npt.generators.bowl3D(0.35, 0.5, nz=3), "coarse bowl3D"))
+    kw = {} if NORTHSTAR_COARSE[coarse] is None else {"coarse_dense_max": NORTHSTAR_COARSE[coarse]}
+    monkeypatch.setattr(npj, "PGModel", functools.partial(npj.PGModel, **kw))
     mj, _ = nj.build_model("full")
-    mt, _ = nt.build_model("full", dtype=torch.float64, device="cpu")
-    assert "A_up_e" in mt._held
+    mt, _ = nt.build_model("full", dtype=torch.float64, device="cpu", **kw)
+    assert mt.saddle_coarse_dense == mj.saddle_coarse_dense == (coarse == "dense")
+    assert {"A_up_e", "Mp_e"} <= set(mt._held)
     mt.ops = ops_from_numpy({k: np.asarray(v) for k, v in mj.ops.items()}, "cpu")
     sj = mj.rest_state()
     st = state_from_numpy({k: np.asarray(getattr(sj, k)) for k in STATE}, "cpu")
@@ -354,9 +387,10 @@ def test_northstar_full_steps_with_jax_counts(monkeypatch):
         counts.append((aux["evo_iters"], aux["inv_iters"]))
         assert counts[-1] == (int(auxj["evo_iters"]), int(auxj["inv_iters"])), i
     assert any(c[1] > 0 for c in counts[10:])
-    y = mt._held["A_up_e"].matvec(torch.ones(mt.fe.spaces.n_p, dtype=torch.float64))
-    y0 = _k1_plain(mt, mt.ops, "A_up_e", torch.ones(mt.fe.spaces.n_p, dtype=torch.float64))
-    assert float((y - y0).abs().max()) <= 1e-12 * float(y0.abs().max())
+    ones = torch.ones(mt.fe.spaces.n_p, dtype=torch.float64)
+    for k in ("A_up_e", "Mp_e"):
+        y, y0 = mt._held[k].matvec(ones), _element_plain(mt, mt.ops, k, ones)
+        assert float((y - y0).abs().max()) <= 1e-12 * float(y0.abs().max()), k
 
 
 def _c_fields(struct: str):

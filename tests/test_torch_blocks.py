@@ -259,18 +259,19 @@ def test_model_builds_block_tables_once_and_operators_share_them():
     c, fe = model.const, model.fe
     tu, tp = c["blk_fine"]["full"]
     assert c["blk_fine"]["uu"][1] is None and set(c["blk_fine"]) == {"full", "uu"}
-    # the coarse level and the P2-P1 coupling run from assembled blocks,
-    # not K1's tables
-    assert "blk_coarse" not in c
-    for t, cd in ((tu, fe.cd_u), (tp, fe.cd_p), (c["blk_b"], fe.cd_b), (c["blk_p"], fe.cd_p)):
+    # the coarse level, the P2-P1 coupling and the P1 pressure mass run
+    # from assembled blocks, not K1's or K2's tables
+    assert "blk_coarse" not in c and "blk_p" not in c
+    for t, cd in ((tu, fe.cd_u), (tp, fe.cd_p), (c["blk_b"], fe.cd_b)):
         blk = np.arange(t.nc) // t.cells
         np.testing.assert_array_equal(
             t.lists.numpy()[blk[:, None], blocks.HEADER + t.slot.numpy()], cd)
     assert model._inv_matrix(model.ops).tables is c["blk_fine"]
     assert model._visc_operator(model.ops["visc_e"]).tables is c["blk_fine"]
     assert model._evo_matrix(model.ops, 0.5).table is c["blk_b"]
-    ops = model.refresh_precond(model.ops, model.rest_state())
-    assert model._mp_operator(ops).table is c["blk_p"]
+    mass = model._mp_operator()
+    model.ops = model.refresh_precond(model.ops, model.rest_state())
+    assert model._mp_operator() is mass and mass.pattern is c["vblk_coarse"]
 
 
 @pytest.fixture(scope="module")
@@ -297,7 +298,8 @@ def test_every_kernel_case_of_the_model_runs_blocked_on_its_tables(model):
     for case in cases:
         x = torch.as_tensor(rng.standard_normal(case["n_x"]))
         if case["mode"] is None:
-            y = blocks.blocked_scalar_plain(*case["blocks"], model.const[case["key"]], x)
+            table = case.get("tables") or model.const[case["key"]]
+            y = blocks.blocked_scalar_plain(*case["blocks"], table, x)
             y0 = K.scalar_matvec_plain(*case["blocks"], *case["cd"], x)
         else:
             tu, tp = case.get("tables") or model.const[case["key"]][case["mode"]]
