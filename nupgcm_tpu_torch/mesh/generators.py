@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..utils.timing import build_step
 from .core import Mesh
 
 
@@ -874,6 +875,7 @@ def _split_prism(prism: list[int], key: np.ndarray | None = None
     return [t for t in tets if len(set(t)) == 4]
 
 
+@build_step("mesh")
 def bowl3D(h: float, alpha: float = 0.5, nz: int | None = None, depth=None) -> Mesh:
     """Bowl basin {(x,y,z): -H <= z <= 0, x^2+y^2 <= 1}, H = alpha(1-x^2-y^2).
 

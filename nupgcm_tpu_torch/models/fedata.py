@@ -22,11 +22,13 @@ from ..fem.geometry import CellGeometry, FacetGeometry, cell_geometry, facet_geo
 from ..fem.reference import element_tables, tabulate
 from ..fem.spaces import ScalarSpace, scalar_dirichlet, velocity_dirichlet
 from ..mesh.core import Mesh
+from ..utils.timing import build_step
 
 
 class Spaces:
     """Velocity (P2 vector), pressure (P1 zero-mean), buoyancy (P2)."""
 
+    @build_step("spaces")
     def __init__(
         self,
         mesh: Mesh,
@@ -104,6 +106,7 @@ class SurfaceGroup:
 class FEData:
     """Static FE tables + scatter plans for the PG systems."""
 
+    @build_step("fedata")
     def __init__(self, mesh: Mesh, spaces: Spaces, degree: int = 4,
                  surface_tags=("surface",), pad_multiple: int = 8):
         """``pad_multiple``: the cell axis is padded to this multiple

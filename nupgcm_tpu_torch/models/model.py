@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import sys
 import time
+import types
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -60,6 +61,7 @@ from ..solvers.preconditioners import (AggregateCoarseCorrection,
                                        BlockStokesPrecond, CoarseCorrection,
                                        SaddleCoarseCorrection, power_lmax)
 from ..utils.precision import precision_ctx, scoped_method
+from ..utils.timing import build_span, read, span
 from .config import Forcings, Parameters, SurfaceFluxBC
 from .fedata import FEData
 from .timesteppers import BDF2
@@ -244,7 +246,8 @@ class PGModel:
         self.dtype = dtype
         self.device = torch.device(device)
         if self.device.type == "cuda":
-            build.load()  # build the kernels now, or raise with nvcc's output
+            with build_span("kernels"):
+                build.load()  # build the kernels now, or raise with nvcc's output
             if not torch.cuda.is_available():
                 raise RuntimeError("device='cuda' asked for, but "
                                    "torch.cuda.is_available() is False")
@@ -312,22 +315,25 @@ class PGModel:
         self.assembly_chunk = assembly_chunk
         self.matmul_precision = matmul_precision
 
-        # seconds of the build's parts, their device work included (a
-        # CUDA model synchronises before each reading): constants (within
-        # them the assembled operators' patterns, "patterns"),
-        # operators, and within operators the coarse saddle matrix's
-        # assembly and inverse ("saddle_coarse" or "aggregate_level",
-        # which a refresh updates), within the latter the host
-        # aggregation of the mesh's vertices ("aggregation")
-        self.build_seconds = {}
+        self._build_s = {}
         with precision_ctx(matmul_precision):
-            t0 = time.perf_counter()
-            self._build_constants()
-            self._sync()
-            t1 = time.perf_counter()
-            self._build_operators()
-            self._sync()
-            self.build_seconds.update(constants=t1 - t0, operators=time.perf_counter() - t1)
+            with build_span("constants", self._build_s, self._sync):
+                self._build_constants()
+            with build_span("operators", self._build_s, self._sync):
+                self._build_operators()
+
+    @property
+    def build_seconds(self):
+        """Seconds of this model's build spans (``utils/timing.build_span``,
+        recorded as ``build.<key>`` too), read-only: "constants" (within
+        them the assembled operators' patterns, "patterns"), "operators"
+        (within them the coarse saddle matrix's assembly and inverse,
+        "saddle_coarse" or "aggregate_level", which a refresh records
+        again, and within the latter the host aggregation of the mesh's
+        vertices, "aggregation").  On a CUDA model each span but the host
+        aggregation opens and closes with a device synchronise, so it
+        covers the device work."""
+        return types.MappingProxyType(self._build_s)
 
     @property
     def preconditioner_branch(self) -> str:
@@ -414,23 +420,23 @@ class PGModel:
         # or the two-grid's element coarse level) and the iterative
         # saddle coarse operator; the P2-P1 pressure coupling of the
         # block-triangular preconditioner on P2 nodes x vertices.
-        # build_seconds["patterns"]: the patterns' seconds
-        self._sync()
-        t0 = time.perf_counter()
-        c["vblk_coarse"] = vertex_pattern(c["cd_p"], sp.p_space.ndof)
-        self._held = {"Mp_e": AssembledBlocks(c["vblk_coarse"], "scalar", self.dtype,
-                                              c["cd_p"])}
-        iterative_sc = self.saddle_coarse and not self.saddle_coarse_dense
-        if iterative_sc or (self.twogrid and not self.coarse_dense):
-            for k in ("sc_uu", "sc_visc_e") if iterative_sc else ("coarse_e",):
-                self._held[k] = AssembledBlocks(c["vblk_coarse"], "uu", self.dtype, c["cd_p"])
-        if iterative_sc:
-            self._sc_op = AssembledSaddle(c["vblk_coarse"], c["cd_p"], self.dtype)
-        if self.triangular and self.precond_kind != "diag":
-            c["vblk_up"] = vertex_pattern(c["cd_u"], sp.u_space.ndof, c["cd_p"], sp.n_p)
-            self._held["A_up_e"] = AssembledBlocks(c["vblk_up"], "up", self.dtype)
-        self._sync()
-        self.build_seconds["patterns"] = time.perf_counter() - t0
+        # Each is named after its tensor ("sc" the coarse saddle).
+        with build_span("patterns", self._build_s, self._sync):
+            c["vblk_coarse"] = vertex_pattern(c["cd_p"], sp.p_space.ndof)
+            self._held = {"Mp_e": AssembledBlocks(c["vblk_coarse"], "scalar", self.dtype,
+                                                  c["cd_p"], name="Mp_e")}
+            iterative_sc = self.saddle_coarse and not self.saddle_coarse_dense
+            if iterative_sc or (self.twogrid and not self.coarse_dense):
+                for k in ("sc_uu", "sc_visc_e") if iterative_sc else ("coarse_e",):
+                    self._held[k] = AssembledBlocks(c["vblk_coarse"], "uu", self.dtype,
+                                                    c["cd_p"], name=k)
+            if iterative_sc:
+                self._sc_op = AssembledSaddle(c["vblk_coarse"], c["cd_p"], self.dtype,
+                                              name="sc")
+            if self.triangular and self.precond_kind != "diag":
+                c["vblk_up"] = vertex_pattern(c["cd_u"], sp.u_space.ndof, c["cd_p"], sp.n_p)
+                self._held["A_up_e"] = AssembledBlocks(c["vblk_up"], "up", self.dtype,
+                                                       name="A_up_e")
         c["blk_b"] = blocks.scalar_table(fe.cd_b, item, self.device)
         c["h_cells"] = T(fe.h_cells)
         c["Gb3"] = asm.physical_grads(c["invJT"], c["dphi_b"], c["embed"])
@@ -636,12 +642,9 @@ class PGModel:
         level from the current eddy viscosity.
         """
         if self.saddle_coarse_dense:
-            self._sync()
-            t0 = time.perf_counter()
-            ops["saddle_coarse_inv"] = self._coarse_inverse(
-                self._saddle_coarse_matrix(nu_q)).to(self.dtype)
-            self._sync()
-            self.build_seconds["saddle_coarse"] = time.perf_counter() - t0
+            with build_span("saddle_coarse", self._build_s, self._sync):
+                ops["saddle_coarse_inv"] = self._coarse_inverse(
+                    self._saddle_coarse_matrix(nu_q)).to(self.dtype)
         else:
             self._assemble_saddle_coarse_elems(ops, nu_q)
 
@@ -703,12 +706,10 @@ class PGModel:
         """Second (aggregate) coarse level for the iterative coarse
         path: ``_aggregate_matrix`` inverted once in float64 on the
         model's device and cast to the working dtype."""
-        self._sync()
-        t0 = time.perf_counter()
-        ops["sc2_inv"] = self._coarse_inverse(self._aggregate_matrix(ops, nu_q)).to(self.dtype)
-        ops["sc2_agg"] = self._sc2_tables()[0]
-        self._sync()
-        self.build_seconds["aggregate_level"] = time.perf_counter() - t0
+        with build_span("aggregate_level", self._build_s, self._sync):
+            ops["sc2_inv"] = self._coarse_inverse(
+                self._aggregate_matrix(ops, nu_q)).to(self.dtype)
+            ops["sc2_agg"] = self._sc2_tables()[0]
 
     def _sc2_tables(self):
         """(agg, n_agg, dofmap) of the aggregate level, built once per
@@ -719,16 +720,15 @@ class PGModel:
         component, then 3na + aggregate).  ``refresh_precond`` reuses
         them."""
         if not hasattr(self, "_sc2_cache"):
-            t0 = time.perf_counter()
-            fe = self.fe
-            agg, na = _aggregate_vertices(
-                np.asarray(fe.cd_p[: fe.mesh.n_cells], np.int64), fe.spaces.p_space.ndof,
-                max(1, self.coarse_dense_max // 4))
-            dofmap = np.concatenate([(3 * agg[:, None] + np.arange(3)).reshape(-1),
-                                     3 * na + agg])
-            as_dev = lambda a: torch.as_tensor(a, dtype=torch.int64, device=self.device)
-            self._sc2_cache = (as_dev(agg), na, as_dev(dofmap))
-            self.build_seconds["aggregation"] = time.perf_counter() - t0
+            with build_span("aggregation", self._build_s):
+                fe = self.fe
+                agg, na = _aggregate_vertices(
+                    np.asarray(fe.cd_p[: fe.mesh.n_cells], np.int64), fe.spaces.p_space.ndof,
+                    max(1, self.coarse_dense_max // 4))
+                dofmap = np.concatenate([(3 * agg[:, None] + np.arange(3)).reshape(-1),
+                                         3 * na + agg])
+                as_dev = lambda a: torch.as_tensor(a, dtype=torch.int64, device=self.device)
+                self._sc2_cache = (as_dev(agg), na, as_dev(dofmap))
         return self._sc2_cache
 
     def _saddle_coarse_solver(self, ops, mp_op):
@@ -764,11 +764,12 @@ class PGModel:
             inner_iters_u=6 if self.inner_method == "inner_gmres" else 3,
             inner_iters_p=3,
             method=self.inner_method,
-            lmax_u=float(ops["sc_lmax"]),
-            lmax_p=float(ops["lmax_p"]),
+            lmax_u=read(ops["sc_lmax"], "precond.bound", "float"),
+            lmax_p=read(ops["lmax_p"], "precond.bound", "float"),
             cond_ratio=self.cond_ratio,
             ublock_op=cuu,
             up_coupling=lambda zp: tg_free * cop.up_matvec(zp),
+            name="precond.coarse_block",
         )
         M_in = Mc
         if "sc2_inv" in ops:
@@ -782,7 +783,7 @@ class PGModel:
 
         def solve(rc):
             zc, _ = gmres(cmat, rc, torch.zeros_like(rc), M=M_in,
-                          flexible=True, m=k, itmax=k, atol=0.0, rtol=1e-2)
+                          flexible=True, m=k, itmax=k, atol=0.0, rtol=1e-2, name="coarse.gmres")
             return zc
 
         return solve
@@ -879,10 +880,11 @@ class PGModel:
         LU with partial pivoting (the Coriolis skew makes it
         nonsymmetric); a singular matrix raises."""
         inv, info = torch.linalg.inv_ex(A)
-        if int(info):
+        info = read(info, "coarse.info", "int")
+        if info:
             raise torch.linalg.LinAlgError(
                 f"coarse saddle matrix of order {A.shape[0]} is singular: "
-                f"U[{int(info) - 1}, {int(info) - 1}] of its LU is zero")
+                f"U[{info - 1}, {info - 1}] of its LU is zero")
         return inv
 
     def _coarse_operator(self, key: str) -> AssembledBlocks:
@@ -959,14 +961,17 @@ class PGModel:
         c, sp = self.const, self.fe.spaces
         return SaddleOperator(uu=ops["A_uu_e"], up=ops["A_up_e"], pu=ops["A_pu_e"],
                               cd_u=c["cd_u"], cd_p=c["cd_p"],
-                              n_u_nodes=sp.u_space.ndof, n_p=sp.n_p, tables=c["blk_fine"])
+                              n_u_nodes=sp.u_space.ndof, n_p=sp.n_p, tables=c["blk_fine"],
+                              name="inversion")
 
-    def _visc_operator(self, visc_e) -> SaddleOperator:
+    def _visc_operator(self, visc_e, name="visc") -> SaddleOperator:
+        """The velocity block of ``visc_e`` (the smoother's surrogate,
+        "visc", or the full block ``A_uu_e``, "ublock")."""
         c = self.const
         return SaddleOperator(uu=visc_e, up=None, pu=None, cd_u=c["cd_u"],
                               cd_p=c["cd_none"],
                               n_u_nodes=self.fe.spaces.u_space.ndof,
-                              tables=c["blk_fine"])
+                              tables=c["blk_fine"], name=name)
 
     def _b_matvec(self, ops, b_full):
         """B b: buoyancy -> vertical momentum rows of the combined
@@ -980,7 +985,7 @@ class PGModel:
         Kv_e = ops["Kv_e"] if Kv_e is None else Kv_e
         return ElementOperator(Ae=ops["M_e"] + theta * (ops["Kh_e"] + Kv_e),
                                cd=self.const["cd_b"], n=self.fe.spaces.n_b,
-                               table=self.const["blk_b"])
+                               table=self.const["blk_b"], name="evolution")
 
     def _mp_operator(self) -> AssembledBlocks:
         """The held P1 pressure mass on its vertex blocks, filled from the
@@ -998,7 +1003,7 @@ class PGModel:
         visc_op = MaskedOperator(self._visc_operator(ops["visc_e"]), c["free_u"])
         mp_op = MaskedOperator(self._mp_operator(), c["free_inv"][n_u:])
         # full (nonsymmetric) velocity block for the inner_gmres method
-        ublock_op = MaskedOperator(self._visc_operator(ops["A_uu_e"]), c["free_u"])
+        ublock_op = MaskedOperator(self._visc_operator(ops["A_uu_e"], "ublock"), c["free_u"])
         iu, ip = self.inner_iters
         up_coupling = None
         if self.triangular:
@@ -1016,7 +1021,7 @@ class PGModel:
 
                 def solve(rc):
                     zc, _ = cg(cop, rc, torch.zeros_like(rc), M_diag_inv=cdiag_inv,
-                               atol=0.0, rtol=1e-2, itmax=60)
+                               atol=0.0, rtol=1e-2, itmax=60, name="coarse.cg")
                     return zc
 
             coarse = CoarseCorrection(
@@ -1054,8 +1059,8 @@ class PGModel:
             inner_iters_u=iu,
             inner_iters_p=ip,
             method=self.inner_method,
-            lmax_u=float(ops["lmax_u"]),
-            lmax_p=float(ops["lmax_p"]),
+            lmax_u=read(ops["lmax_u"], "precond.bound", "float"),
+            lmax_p=read(ops["lmax_p"], "precond.bound", "float"),
             cond_ratio=self.cond_ratio,
             ublock_op=ublock_op,
             up_coupling=up_coupling,
@@ -1074,8 +1079,10 @@ class PGModel:
         A = MaskedOperator(Amat, c["free_inv"])
         xd = c["xdiri_inv"] * (1.0 - c["free_inv"])
         y = torch.where(A.free_bool, y_full - Amat.matvec(xd), c["xdiri_inv"])
-        M, flexible = self._make_inv_precond(ops)
-        x, stats = gmres(A, y, x0, M=M, flexible=flexible, **self.inv_opts)
+        with span("invert.precond_setup"):
+            M, flexible = self._make_inv_precond(ops)
+        with span("invert.fgmres"):
+            x, stats = gmres(A, y, x0, M=M, flexible=flexible, name="fgmres", **self.inv_opts)
         n_u = self.fe.spaces.n_u
         u, p = x[:n_u].reshape(-1, 3), x[n_u:]
         pw = ops["p_volw"]
@@ -1086,7 +1093,10 @@ class PGModel:
         """Flow inversion: A x = B b + s on free dofs (reference
         invert!, src/inversion.jl:101-110 + sync_flow!,
         src/model.jl:302-317)."""
-        return self._solve_saddle(ops, self._b_matvec(ops, b_full) + ops["s"], x0)
+        with span("invert"):
+            with span("invert.rhs"):
+                y = self._b_matvec(ops, b_full) + ops["s"]
+            return self._solve_saddle(ops, y, x0)
 
     @scoped_method
     def solve_inversion(self, y_full, x0=None):
@@ -1103,58 +1113,63 @@ class PGModel:
 
         ``r``: step ratio dt_new/dt_old for the variable-step BDF2
         coefficients."""
-        c = self.const
-        fe, pr, fr = self.fe, self.params, self.forcings
-        dt_ = state.dt
+        with span("evolve"):
+            c = self.const
+            fe, pr, fr = self.fe, self.params, self.forcings
+            dt_ = state.dt
 
-        # convection: rebuild Kv and rhs_diff from the current b
-        if fr.conv_param.is_on:
-            kv_q = fr.conv_param.kappa_v(c["kv_q"], self._abz(state.b))
-            Kv_e = asm.elem_stiffness(c["wq"], kv_q, c["Gb3"], (2,))
-            rhs_diff = fe.vec_plan_b.assemble(
-                asm.elem_rhs_diff(c["wq"], kv_q, c["Gb3"], pr.N2))
-        else:
-            Kv_e, rhs_diff = ops["Kv_e"], ops["rhs_diff"]
+            # convection: rebuild Kv and rhs_diff from the current b
+            if fr.conv_param.is_on:
+                with span("closures"):
+                    kv_q = fr.conv_param.kappa_v(c["kv_q"], self._abz(state.b))
+                    Kv_e = asm.elem_stiffness(c["wq"], kv_q, c["Gb3"], (2,))
+                    rhs_diff = fe.vec_plan_b.assemble(
+                        asm.elem_rhs_diff(c["wq"], kv_q, c["Gb3"], pr.N2))
+            else:
+                Kv_e, rhs_diff = ops["Kv_e"], ops["rhs_diff"]
 
-        # BDF coefficients; BDF2 runs its first step as BDF1.
-        # Variable-step BDF2 (ratio r): c0=(1+r)^2/(1+2r), c1=r^2/(1+2r),
-        # implicit/advection weight w=(1+r)/(1+2r); fixed step r=1
-        # recovers the reference's 4/3, 1/3, 2/3 (src/evolution.jl:187-193).
-        use2 = isinstance(self.ts, BDF2) and state.step > 0
-        base_theta = dt_ * pr.a2e2 / pr.mu_rho
-        if use2:
-            w = (1.0 + r) / (1.0 + 2.0 * r)
-            theta = w * base_theta
-            c0 = (1.0 + r) ** 2 / (1.0 + 2.0 * r)
-            c1 = r ** 2 / (1.0 + 2.0 * r)
-            cdt = w * dt_
-            w2 = 1.0 + r
-        else:
-            theta, c0, c1, cdt, w2 = base_theta, 1.0, 0.0, dt_, 1.0
+            # BDF coefficients; BDF2 runs its first step as BDF1.
+            # Variable-step BDF2 (ratio r): c0=(1+r)^2/(1+2r), c1=r^2/(1+2r),
+            # implicit/advection weight w=(1+r)/(1+2r); fixed step r=1
+            # recovers the reference's 4/3, 1/3, 2/3 (src/evolution.jl:187-193).
+            use2 = isinstance(self.ts, BDF2) and state.step > 0
+            base_theta = dt_ * pr.a2e2 / pr.mu_rho
+            if use2:
+                w = (1.0 + r) / (1.0 + 2.0 * r)
+                theta = w * base_theta
+                c0 = (1.0 + r) ** 2 / (1.0 + 2.0 * r)
+                c1 = r ** 2 / (1.0 + 2.0 * r)
+                cdt = w * dt_
+                w2 = 1.0 + r
+            else:
+                theta, c0, c1, cdt, w2 = base_theta, 1.0, 0.0, dt_, 1.0
 
-        Afull = self._evo_matrix(ops, theta, Kv_e)
-        A = MaskedOperator(Afull, c["free_b"])
+            Afull = self._evo_matrix(ops, theta, Kv_e)
+            A = MaskedOperator(Afull, c["free_b"])
 
-        # advection rhs (per-step element assembly)
-        u_e = state.u[c["cd_u"]]
-        up_e = state.u_prev[c["cd_u"]]
-        b_e = state.b[c["cd_b"]]
-        bp_e = state.b_prev[c["cd_b"]]
-        ue = w2 * u_e - (w2 - 1.0) * up_e
-        be = w2 * b_e - (w2 - 1.0) * bp_e
-        u_q = torch.einsum("qi,cia->cqa", c["phi_u"], ue)
-        gb_q = torch.einsum("cqid,ci->cqd", c["Gb3"], be)
-        adv = torch.einsum("cqa,cqa->cq", u_q, gb_q) + u_q[..., 2] * pr.N2
-        b_q = torch.einsum("qi,ci->cq", c["phi_b"], b_e)
-        bp_q = torch.einsum("qi,ci->cq", c["phi_b"], bp_e)
-        integ = c0 * b_q - c1 * bp_q - cdt * adv
-        rhs_adv = fe.vec_plan_b.assemble(
-            torch.einsum("cq,qi,cq->ci", c["wq"], c["phi_b"], integ))
+            # advection rhs (per-step element assembly)
+            with span("evolve.rhs"):
+                u_e = state.u[c["cd_u"]]
+                up_e = state.u_prev[c["cd_u"]]
+                b_e = state.b[c["cd_b"]]
+                bp_e = state.b_prev[c["cd_b"]]
+                ue = w2 * u_e - (w2 - 1.0) * up_e
+                be = w2 * b_e - (w2 - 1.0) * bp_e
+                u_q = torch.einsum("qi,cia->cqa", c["phi_u"], ue)
+                gb_q = torch.einsum("cqid,ci->cqd", c["Gb3"], be)
+                adv = torch.einsum("cqa,cqa->cq", u_q, gb_q) + u_q[..., 2] * pr.N2
+                b_q = torch.einsum("qi,ci->cq", c["phi_b"], b_e)
+                bp_q = torch.einsum("qi,ci->cq", c["phi_b"], bp_e)
+                integ = c0 * b_q - c1 * bp_q - cdt * adv
+                rhs_adv = fe.vec_plan_b.assemble(
+                    torch.einsum("cq,qi,cq->ci", c["wq"], c["phi_b"], integ))
 
-        y_full = rhs_adv + theta * rhs_diff + dt_ * ops["rhs_flux"]
-        xd = c["bdiri"] * (1.0 - c["free_b"])
-        y = torch.where(A.free_bool, y_full - Afull.matvec(xd), c["bdiri"])
-        return cg(A, y, state.b, M_diag_inv=1.0 / A.diagonal(), **self.evo_opts)
+                y_full = rhs_adv + theta * rhs_diff + dt_ * ops["rhs_flux"]
+                xd = c["bdiri"] * (1.0 - c["free_b"])
+                y = torch.where(A.free_bool, y_full - Afull.matvec(xd), c["bdiri"])
+            with span("evolve.cg"):
+                return cg(A, y, state.b, M_diag_inv=1.0 / A.diagonal(), name="cg",
+                          **self.evo_opts)
 
     def _update_dt(self, state: State):
         """CFL-adaptive dt (reference update_Dt!,
@@ -1207,21 +1222,23 @@ class PGModel:
         fr = self.forcings
         if not fr.eddy_param.is_on:
             return ops
-        c, sp = self.const, self.fe.spaces
-        ops = dict(ops)
-        nu_q = self._eddy_rebuild(ops, state)
-        self._assemble_visc_elems(nu_q, out=ops["visc_e"])
-        visc_op = MaskedOperator(self._visc_operator(ops["visc_e"]), c["free_u"])
-        ops["visc_dinv"] = 1.0 / visc_op.diagonal()
-        ops["lmax_u"] = power_lmax(visc_op, ops["visc_dinv"], sp.n_u)
-        if self.twogrid:
-            self._assemble_coarse(ops, nu_q)
-        if self.saddle_coarse:
-            self._assemble_saddle_coarse(ops, nu_q)
-            if "sc_visc_e" in ops:
-                cvisc = MaskedOperator(self._coarse_operator("sc_visc_e"), c["tg_coarse_free"])
-                ops["sc_visc_dinv"] = 1.0 / cvisc.diagonal()
-        return ops
+        with span("refresh"):
+            c, sp = self.const, self.fe.spaces
+            ops = dict(ops)
+            nu_q = self._eddy_rebuild(ops, state)
+            self._assemble_visc_elems(nu_q, out=ops["visc_e"])
+            visc_op = MaskedOperator(self._visc_operator(ops["visc_e"]), c["free_u"])
+            ops["visc_dinv"] = 1.0 / visc_op.diagonal()
+            ops["lmax_u"] = power_lmax(visc_op, ops["visc_dinv"], sp.n_u)
+            if self.twogrid:
+                self._assemble_coarse(ops, nu_q)
+            if self.saddle_coarse:
+                self._assemble_saddle_coarse(ops, nu_q)
+                if "sc_visc_e" in ops:
+                    cvisc = MaskedOperator(self._coarse_operator("sc_visc_e"),
+                                           c["tg_coarse_free"])
+                    ops["sc_visc_dinv"] = 1.0 / cvisc.diagonal()
+            return ops
 
     def _eddy_rebuild(self, ops, state: State):
         """Eddy-viscosity inversion-matrix rebuild (reference
@@ -1230,9 +1247,11 @@ class PGModel:
         refilled from them; the preconditioner is kept, as the
         reference keeps it.  Returns the viscosity at the quadrature
         points."""
-        nu_q = self.forcings.eddy_param.nu(self.const["f_eddy_q"], self._abz(state.b))
-        self._assemble_inversion_elems(nu_q, out=(ops["A_uu_e"], ops["A_up_e"], ops["A_pu_e"]))
-        self._refill(ops, ("A_up_e",))
+        with span("closures"):
+            nu_q = self.forcings.eddy_param.nu(self.const["f_eddy_q"], self._abz(state.b))
+            self._assemble_inversion_elems(nu_q,
+                                           out=(ops["A_uu_e"], ops["A_up_e"], ops["A_pu_e"]))
+            self._refill(ops, ("A_up_e",))
         return nu_q
 
     # ------------------------------------------------------------------
@@ -1244,32 +1263,34 @@ class PGModel:
         and the progress-line diagnostics (Python numbers).  With the
         eddy closure on, every 10th step rebuilds the inversion blocks
         of ``self.ops`` from the new buoyancy."""
-        dt_old = state.dt
-        dt_ = self._update_dt(state)
-        state = State(u=state.u, p=state.p, b=state.b, u_prev=state.u_prev,
-                      b_prev=state.b_prev, t=state.t, dt=dt_, step=state.step)
-        b_new, evo_stats = self._evolve_pure(self.ops, state, dt_ / dt_old)
-        x0 = torch.cat([state.u.reshape(-1), state.p])
-        u_new, p_new, inv_stats = self._invert_pure(self.ops, b_new, x0)
-        new_state = State(u=u_new, p=p_new, b=b_new, u_prev=state.u, b_prev=state.b,
-                          t=state.t + dt_, dt=dt_, step=state.step + 1)
-        if self.forcings.eddy_param.is_on and new_state.step % 10 == 0:
-            self._eddy_rebuild(self.ops, new_state)
-        freeb = self.const["free_b"].bool()
-        u_max = torch.abs(u_new).max()
-        inf = torch.tensor(float("inf"), dtype=b_new.dtype, device=b_new.device)
-        diag = torch.stack([
-            u_max,
-            torch.abs(b_new).max(),
-            torch.where(freeb, b_new, inf).min(),
-            torch.where(freeb, b_new, -inf).max(),
-            torch.where(freeb, torch.abs(b_new - state.b), 0.0).max() / dt_,
-            self.const["h_cells"].min() / torch.clamp(u_max, min=1e-30),
-        ]).tolist()
-        aux = dict(zip(AUX_KEYS[4:], diag))
-        aux.update(evo_iters=evo_stats.iterations, evo_res=evo_stats.residual,
-                   inv_iters=inv_stats.iterations, inv_res=inv_stats.residual)
-        return new_state, aux
+        with span("step", state.step):
+            dt_old = state.dt
+            dt_ = self._update_dt(state)
+            state = State(u=state.u, p=state.p, b=state.b, u_prev=state.u_prev,
+                          b_prev=state.b_prev, t=state.t, dt=dt_, step=state.step)
+            b_new, evo_stats = self._evolve_pure(self.ops, state, dt_ / dt_old)
+            x0 = torch.cat([state.u.reshape(-1), state.p])
+            u_new, p_new, inv_stats = self._invert_pure(self.ops, b_new, x0)
+            new_state = State(u=u_new, p=p_new, b=b_new, u_prev=state.u, b_prev=state.b,
+                              t=state.t + dt_, dt=dt_, step=state.step + 1)
+            if self.forcings.eddy_param.is_on and new_state.step % 10 == 0:
+                self._eddy_rebuild(self.ops, new_state)
+            with span("step.aux"):
+                freeb = self.const["free_b"].bool()
+                u_max = torch.abs(u_new).max()
+                inf = torch.tensor(float("inf"), dtype=b_new.dtype, device=b_new.device)
+                diag = read(torch.stack([
+                    u_max,
+                    torch.abs(b_new).max(),
+                    torch.where(freeb, b_new, inf).min(),
+                    torch.where(freeb, b_new, -inf).max(),
+                    torch.where(freeb, torch.abs(b_new - state.b), 0.0).max() / dt_,
+                    self.const["h_cells"].min() / torch.clamp(u_max, min=1e-30),
+                ]), "step.aux", "list")
+            aux = dict(zip(AUX_KEYS[4:], diag))
+            aux.update(evo_iters=evo_stats.iterations, evo_res=evo_stats.residual,
+                       inv_iters=inv_stats.iterations, inv_res=inv_stats.residual)
+            return new_state, aux
 
     @scoped_method
     def multi_step(self, state: State, n: int):

@@ -32,7 +32,9 @@ Each operator's blocks are allocated once and scattered from the
 element tensors by ``index_add_`` over ``slot`` (``fill``, in place,
 whenever the model's element tensors change); its kernel launch is
 prepared on first use.  A model holds one operator per element tensor
-for its every solve.  ``diagonal`` reads the element tensors of the last
+for its every solve, named after the tensor (``name``): each ``matvec``
+is the span and count ``op.<name>`` of ``utils/timing``
+(``up_matvec``: ``op.<name>.up``).  ``diagonal`` reads the element tensors of the last
 ``fill``, as the element ``SaddleOperator`` and ``ElementOperator`` do,
 so both give the same bits.
 
@@ -48,6 +50,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..utils.timing import applied
 from . import kernels
 from .element import saddle_diagonal, scalar_diagonal
 
@@ -130,9 +133,10 @@ class AssembledSaddle(_Applies):
     columns again as ``up_vals`` (n_blocks, 3), which "up" reads instead
     of the whole block."""
 
-    def __init__(self, pattern: VertexPattern, cd: torch.Tensor, dtype: torch.dtype):
+    def __init__(self, pattern: VertexPattern, cd: torch.Tensor, dtype: torch.dtype,
+                 name: str = "sc"):
         nb, device = pattern.n_blocks, pattern.col.device
-        self.pattern, self.cd = pattern, cd
+        self.pattern, self.cd, self.name = pattern, cd, name
         self.n_u_nodes = self.n_p = pattern.n_rows
         self.vals = torch.zeros((nb, 16), dtype=dtype, device=device)
         self.up_vals = torch.zeros((nb, 3), dtype=dtype, device=device)
@@ -150,11 +154,13 @@ class AssembledSaddle(_Applies):
         return self
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        return self._apply(self.vals, x, "full_pp")
+        with applied(self.name):
+            return self._apply(self.vals, x, "full_pp")
 
     def up_matvec(self, p_vec: torch.Tensor) -> torch.Tensor:
         """Coupling block alone: velocity rows of [0, up; 0, 0] @ [0; p]."""
-        return self._apply(self.up_vals, p_vec, "up")
+        with applied(self.name + ".up"):
+            return self._apply(self.up_vals, p_vec, "up")
 
     def diagonal(self) -> torch.Tensor:
         """Assembled diagonal: velocity (3 n_rows), then pressure."""
@@ -176,8 +182,9 @@ class AssembledBlocks(_Applies):
           value a block, ``vals`` (n_blocks, 1)."""
 
     def __init__(self, pattern: VertexPattern, mode: str, dtype: torch.dtype,
-                 cd: torch.Tensor = None):
+                 cd: torch.Tensor = None, name: str = None):
         self.pattern, self.mode, self.cd = pattern, mode, cd
+        self.name = mode if name is None else name
         self.vals = torch.zeros((pattern.n_blocks, kernels.VBLOCK_WIDTH[mode]), dtype=dtype,
                                 device=pattern.col.device)
         self.e = None
@@ -199,7 +206,8 @@ class AssembledBlocks(_Applies):
         return self
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        return self._apply(self.vals, x, self.mode)
+        with applied(self.name):
+            return self._apply(self.vals, x, self.mode)
 
     def diagonal(self) -> torch.Tensor:
         """Assembled diagonal of a "uu" (3 n_rows) or "scalar" (n_rows)

@@ -12,7 +12,10 @@ An operator checks its tensors' shapes and types once, at
 construction.  On a CUDA device it also prepares its kernel launch
 there (``kernels.saddle_launch`` / ``scalar_launch``) over the block
 tables it is given (``ops/blocks.py``; the model builds them once with
-its constants), so each application costs one ctypes call.
+its constants), so each application costs one ctypes call.  An operator carries the
+name the model gives it (``name``); each ``matvec`` is the span and
+count ``op.<name>`` (``up_matvec``: ``op.<name>.up``) of
+``utils/timing``.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from dataclasses import dataclass, field
 
 import torch
 
+from ..utils.timing import applied
 from . import blocks, kernels
 
 
@@ -37,6 +41,7 @@ class ElementOperator:
     cd: torch.Tensor
     n: int
     table: blocks.BlockTable = None  # built here when None (CUDA only)
+    name: str = "element"
     _launch: kernels.PreparedLaunch = field(default=None, init=False, repr=False)
 
     def __post_init__(self):
@@ -47,9 +52,10 @@ class ElementOperator:
             self._launch = kernels.scalar_launch(self.Ae, self.table, self.n)
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        if self._launch is not None:
-            return self._launch(x)
-        return kernels.scalar_matvec(self.Ae, self.cd, x)
+        with applied(self.name):
+            if self._launch is not None:
+                return self._launch(x)
+            return kernels.scalar_matvec(self.Ae, self.cd, x)
 
     def rmatvec(self, y: torch.Tensor) -> torch.Tensor:
         """Transpose apply, x = sum_e P_e^T A_e^T P_e y: gather the
@@ -88,6 +94,7 @@ class SaddleOperator:
     n_p: int = 0
     pp: torch.Tensor = None
     tables: dict = None  # {mode: (velocity, pressure) block tables}; built when None (CUDA)
+    name: str = "saddle"
     _launch: kernels.PreparedLaunch = field(default=None, init=False, repr=False)
     _up_launch: kernels.PreparedLaunch = field(default=None, init=False, repr=False)
 
@@ -110,23 +117,25 @@ class SaddleOperator:
                                                  self.n_u_nodes, self.n_p)
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        if self._launch is not None:
-            return self._launch(x)
-        return kernels.saddle_matvec(self.uu, self.up, self.pu, self.pp,
-                                     self.cd_u, self.cd_p, x, self.mode, self.n_u_nodes)
+        with applied(self.name):
+            if self._launch is not None:
+                return self._launch(x)
+            return kernels.saddle_matvec(self.uu, self.up, self.pu, self.pp,
+                                         self.cd_u, self.cd_p, x, self.mode, self.n_u_nodes)
 
     def up_matvec(self, p_vec: torch.Tensor) -> torch.Tensor:
         """Coupling block alone: velocity rows of [0, up; 0, 0] @ [0; p]
         (the pressure-gradient term).  Used by the block-triangular
         Stokes preconditioner."""
-        if self._launch is None:
-            return kernels.saddle_matvec(None, self.up, None, None, self.cd_u,
-                                         self.cd_p, p_vec, "up", self.n_u_nodes)
-        if self._up_launch is None:
-            self._up_launch = kernels.saddle_launch(None, self.up, None, None,
-                                                    self.tables["up"], "up", self.n_u_nodes,
-                                                    self.n_p)
-        return self._up_launch(p_vec)
+        with applied(self.name + ".up"):
+            if self._launch is None:
+                return kernels.saddle_matvec(None, self.up, None, None, self.cd_u,
+                                             self.cd_p, p_vec, "up", self.n_u_nodes)
+            if self._up_launch is None:
+                self._up_launch = kernels.saddle_launch(None, self.up, None, None,
+                                                        self.tables["up"], "up",
+                                                        self.n_u_nodes, self.n_p)
+            return self._up_launch(p_vec)
 
     def diagonal(self) -> torch.Tensor:
         """Assembled diagonal: velocity (3 n_u_nodes), then pressure

@@ -5,7 +5,8 @@ solve (reference src/evolution.jl:114-126, src/iterative_solvers.jl:58)
 and ``nupgcm_tpu.solvers.cg``: stop when ||r||_2 <= atol + rtol *
 ||r0||_2, cap at itmax iterations (itmax = 0 means 2N).  The loop runs
 on the host; the stopping test reads one scalar from the device per
-iteration.
+iteration (``utils/timing.read``, site ``cg.rnorm``); each iteration is
+the span ``<name>.iter``.
 
 ``reduce`` is the counterpart of the JAX solver's ``psum_axis``: when
 the vectors are one rank's part of a distributed vector, every inner
@@ -19,6 +20,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+
+from ..utils.timing import read, span
 
 
 @dataclass(frozen=True)
@@ -34,7 +37,7 @@ def _safe(v: torch.Tensor) -> torch.Tensor:
 
 
 def cg(op, b, x0, *, M_diag_inv=None, M=None, atol=1e-6, rtol=1e-6, itmax=0,
-       reduce=None):
+       reduce=None, name="cg"):
     """Solve op(x) = b with preconditioned CG.
 
     op: callable x -> A x (SPD on the relevant subspace)
@@ -42,6 +45,7 @@ def cg(op, b, x0, *, M_diag_inv=None, M=None, atol=1e-6, rtol=1e-6, itmax=0,
     M: callable r -> M^{-1} r (overrides M_diag_inv)
     reduce: None, or a callable that sums a local inner product over
     the ranks holding the rest of the vectors
+    name: the label of the solve's spans
     Returns (x, SolveStats).
     """
     if itmax == 0:
@@ -61,18 +65,20 @@ def cg(op, b, x0, *, M_diag_inv=None, M=None, atol=1e-6, rtol=1e-6, itmax=0,
     z = M(r)
     p = z
     rz = dot(r, z)
-    rnorm = float(torch.sqrt(dot(r, r)))
+    rnorm = read(torch.sqrt(dot(r, r)), "cg.rnorm", "float")
     tol = atol + rtol * rnorm
     k = 0
+    it_name = name + ".iter"
     while rnorm > tol and k < itmax:
-        Ap = op(p)
-        alpha = rz / _safe(dot(p, Ap))
-        x = x + alpha * p
-        r = r - alpha * Ap
-        z = M(r)
-        rz_new = dot(r, z)
-        p = z + (rz_new / _safe(rz)) * p
-        rz = rz_new
-        k += 1
-        rnorm = float(torch.sqrt(dot(r, r)))
+        with span(it_name):
+            Ap = op(p)
+            alpha = rz / _safe(dot(p, Ap))
+            x = x + alpha * p
+            r = r - alpha * Ap
+            z = M(r)
+            rz_new = dot(r, z)
+            p = z + (rz_new / _safe(rz)) * p
+            rz = rz_new
+            k += 1
+            rnorm = read(torch.sqrt(dot(r, r)), "cg.rnorm", "float")
     return x, SolveStats(iterations=k, residual=rnorm, converged=rnorm <= tol)

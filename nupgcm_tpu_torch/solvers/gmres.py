@@ -14,7 +14,11 @@ src/iterative_solvers.jl:58).  Same algorithm as
 
 The basis lives on the device; the small Hessenberg/Givens recurrence
 runs on the host in the working precision, fed by one device read per
-iteration (which the stopping test needs anyway).
+iteration (which the stopping test needs anyway).  The reads go through
+``utils/timing.read`` (sites ``gmres.beta0``, ``gmres.beta`` a restart
+cycle, ``gmres.h`` an iteration); each iteration is the span
+``<name>.iter``, within it ``<name>.precond``, ``<name>.op`` and
+``<name>.gs`` (the CGS2 products and the norm).
 
 Stopping: ||r_pre|| <= atol + rtol * ||r0_pre|| in the preconditioned
 residual norm for left preconditioning (Krylov.jl semantics), true
@@ -33,6 +37,7 @@ import numpy as np
 import scipy.linalg
 import torch
 
+from ..utils.timing import read, span
 from .cg import SolveStats, _safe
 
 
@@ -44,13 +49,14 @@ def _givens(a, b):
 
 
 def gmres(op, b, x0, *, M=None, m=20, atol=1e-6, rtol=1e-6, itmax=0,
-          flexible=False, reduce=None):
+          flexible=False, reduce=None, name="gmres"):
     """Solve op(x) = b with restarted (F)GMRES(m).
 
     op: callable x -> A x.
     M: preconditioner callable r -> M^{-1} r (left unless flexible).
     reduce: None, or a callable that sums local inner products (a
     scalar or a vector of them) over the ranks.
+    name: the label of the solve's spans.
     Returns (x, SolveStats).
     """
     n = b.shape[0]
@@ -65,6 +71,7 @@ def gmres(op, b, x0, *, M=None, m=20, atol=1e-6, rtol=1e-6, itmax=0,
         return r if flexible else M(r)
 
     red = (lambda v: v) if reduce is None else reduce
+    it_name, pre_name, op_name, gs_name = (name + k for k in (".iter", ".precond", ".op", ".gs"))
 
     def norm(v):
         return torch.sqrt(red(torch.dot(v, v)))
@@ -77,37 +84,44 @@ def gmres(op, b, x0, *, M=None, m=20, atol=1e-6, rtol=1e-6, itmax=0,
         Z = b.new_zeros((m, n)) if flexible else None
         R = np.zeros((m, m), sdt)  # upper-triangular factor, columns
         g = np.zeros(m + 1, sdt)
-        g[0] = beta_t.item()
+        g[0] = read(beta_t, "gmres.beta")
         cs = np.zeros(m, sdt)
         sn = np.zeros(m, sdt)
         j, res = 0, g[0]
         while j < m and res > tol:
-            if flexible:
-                Z[j] = M(V[j])
-                w = op(Z[j])
-            else:
-                w = M(op(V[j]))
-            Vj = V[: j + 1]
-            h1 = red(Vj @ w)
-            w = w - Vj.T @ h1
-            h2 = red(Vj @ w)
-            w = w - Vj.T @ h2
-            hnorm = norm(w)
-            V[j + 1] = w / _safe(hnorm)
-            h = torch.cat([h1 + h2, hnorm[None]]).cpu().numpy()  # (j + 2,)
-            # apply existing rotations to the new column
-            for i in range(j):
-                hi, hi1 = h[i], h[i + 1]
-                h[i] = cs[i] * hi + sn[i] * hi1
-                h[i + 1] = -sn[i] * hi + cs[i] * hi1
-            c, s, rr = _givens(h[j], h[j + 1])
-            cs[j], sn[j] = c, s
-            R[:j, j] = h[:j]
-            R[j, j] = rr
-            g[j + 1] = -s * g[j]
-            g[j] = c * g[j]
-            res = abs(g[j + 1])
-            j += 1
+            with span(it_name):
+                if flexible:
+                    with span(pre_name):
+                        Z[j] = M(V[j])
+                    with span(op_name):
+                        w = op(Z[j])
+                else:
+                    with span(op_name):
+                        w = op(V[j])
+                    with span(pre_name):
+                        w = M(w)
+                with span(gs_name):
+                    Vj = V[: j + 1]
+                    h1 = red(Vj @ w)
+                    w = w - Vj.T @ h1
+                    h2 = red(Vj @ w)
+                    w = w - Vj.T @ h2
+                    hnorm = norm(w)
+                    V[j + 1] = w / _safe(hnorm)
+                h = read(torch.cat([h1 + h2, hnorm[None]]), "gmres.h", "numpy")  # (j + 2,)
+                # apply existing rotations to the new column
+                for i in range(j):
+                    hi, hi1 = h[i], h[i + 1]
+                    h[i] = cs[i] * hi + sn[i] * hi1
+                    h[i + 1] = -sn[i] * hi + cs[i] * hi1
+                c, s, rr = _givens(h[j], h[j + 1])
+                cs[j], sn[j] = c, s
+                R[:j, j] = h[:j]
+                R[j, j] = rr
+                g[j + 1] = -s * g[j]
+                g[j] = c * g[j]
+                res = abs(g[j + 1])
+                j += 1
         if j == 0:
             return x, res, 0
         y = scipy.linalg.solve_triangular(R[:j, :j], g[:j], lower=False)
@@ -115,7 +129,7 @@ def gmres(op, b, x0, *, M=None, m=20, atol=1e-6, rtol=1e-6, itmax=0,
         return x + basis.T @ torch.as_tensor(y, dtype=b.dtype, device=b.device), res, j
 
     r = pre_resid(x0)
-    beta0 = float(norm(r))
+    beta0 = read(norm(r), "gmres.beta0", "float")
     tol = atol + rtol * beta0
     x, res, total = x0, beta0, 0
     while res > tol and total < itmax:

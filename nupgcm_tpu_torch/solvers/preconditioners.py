@@ -16,6 +16,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..utils.timing import span
 from .cg import cg
 from .gmres import gmres
 
@@ -88,13 +89,14 @@ class CoarseCorrection:
     n_vert: int
 
     def __call__(self, A, r: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-        rf = (r - A(z)).reshape(-1, 3)  # node-major (node, comp)
-        contrib = self.weights[:, :, None] * rf[:, None, :]  # (n, 2, 3)
-        rcoarse = r.new_zeros((self.n_vert, 3)).index_add_(
-            0, self.parents.reshape(-1), contrib.reshape(-1, 3)).reshape(-1)
-        zc = self.solve(rcoarse * self.coarse_free) * self.coarse_free
-        corr = (self.weights[:, :, None] * zc.reshape(-1, 3)[self.parents]).sum(dim=1)
-        return z + corr.reshape(-1) * self.free_u
+        with span("precond.twogrid"):
+            rf = (r - A(z)).reshape(-1, 3)  # node-major (node, comp)
+            contrib = self.weights[:, :, None] * rf[:, None, :]  # (n, 2, 3)
+            rcoarse = r.new_zeros((self.n_vert, 3)).index_add_(
+                0, self.parents.reshape(-1), contrib.reshape(-1, 3)).reshape(-1)
+            zc = self.solve(rcoarse * self.coarse_free) * self.coarse_free
+            corr = (self.weights[:, :, None] * zc.reshape(-1, 3)[self.parents]).sum(dim=1)
+            return z + corr.reshape(-1) * self.free_u
 
 
 @dataclass
@@ -133,9 +135,10 @@ class SaddleCoarseCorrection:
         return torch.cat([zu, zc[3 * self.n_vert:]])
 
     def __call__(self, A, r: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-        rc = r - A(z)
-        zc = self.solve(self._restrict(rc))
-        return z + self._prolong(zc) * self.free_fine
+        with span("precond.saddle_coarse"):
+            rc = r - A(z)
+            zc = self.solve(self._restrict(rc))
+            return z + self._prolong(zc) * self.free_fine
 
 
 @dataclass
@@ -162,16 +165,17 @@ class AggregateCoarseCorrection:
     def __call__(self, A, r: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
         na = self.n_agg
         nv = self.agg.shape[0]
-        rc = r - A(z)
-        # (na, 3).reshape(-1) lays dofs out as 3*aggregate + component,
-        # matching the Galerkin matrix built in
-        # models/model.py::_aggregate_matrix
-        r2u = rc.new_zeros((na, 3)).index_add_(0, self.agg, rc[: 3 * nv].reshape(nv, 3))
-        r2p = rc.new_zeros(na).index_add_(0, self.agg, rc[3 * nv:])
-        z2 = self.inv @ torch.cat([r2u.reshape(-1), r2p])
-        zu = z2[: 3 * na].reshape(na, 3)[self.agg]
-        zp = z2[3 * na:][self.agg]
-        return z + torch.cat([zu.reshape(-1), zp]) * self.free_c
+        with span("precond.aggregate"):
+            rc = r - A(z)
+            # (na, 3).reshape(-1) lays dofs out as 3*aggregate + component,
+            # matching the Galerkin matrix built in
+            # models/model.py::_aggregate_matrix
+            r2u = rc.new_zeros((na, 3)).index_add_(0, self.agg, rc[: 3 * nv].reshape(nv, 3))
+            r2p = rc.new_zeros(na).index_add_(0, self.agg, rc[3 * nv:])
+            z2 = self.inv @ torch.cat([r2u.reshape(-1), r2p])
+            zu = z2[: 3 * na].reshape(na, 3)[self.agg]
+            zp = z2[3 * na:][self.agg]
+            return z + torch.cat([zu.reshape(-1), zp]) * self.free_c
 
 
 @dataclass
@@ -208,18 +212,26 @@ class BlockStokesPrecond:
     #                            residuals of the saddle coarse step)
     reduce: callable = None  # the inner Krylov solves' reduction hook
     #                          (distributed vectors; solvers/gmres.py)
+    name: str = None  # a span around each application (the coarse level's)
 
     def _solve_p(self, rp: torch.Tensor) -> torch.Tensor:
         if self.method == "cg":
             zp, _ = cg(self.mp_op, rp, torch.zeros_like(rp),
                        M_diag_inv=self.mp_diag_inv,
-                       atol=0.0, rtol=1e-8, itmax=self.inner_iters_p, reduce=self.reduce)
+                       atol=0.0, rtol=1e-8, itmax=self.inner_iters_p, reduce=self.reduce,
+                       name="precond.cg")
             return zp
         # pressure mass is well conditioned under Jacobi: tight ratio
         return chebyshev(self.mp_op, self.mp_diag_inv, rp,
                          self.inner_iters_p, self.lmax_p / 4.0, self.lmax_p)
 
     def __call__(self, r: torch.Tensor) -> torch.Tensor:
+        if self.name is None:
+            return self._apply(r)
+        with span(self.name):
+            return self._apply(r)
+
+    def _apply(self, r: torch.Tensor) -> torch.Tensor:
         z = self._block(r)
         if self.saddle_coarse is not None:
             # multiplicative two-level step: block pre-smooth, then the
@@ -234,9 +246,19 @@ class BlockStokesPrecond:
         if self.up_coupling is not None:
             # block upper-triangular: with exact blocks the
             # preconditioned spectrum is {1}
-            zp = self._solve_p(rp)
-            return torch.cat([self._solve_u(ru - self.up_coupling(zp)), zp])
-        return torch.cat([self._solve_u(ru), self._solve_p(rp)])
+            zp = self._smooth_p(rp)
+            with span("precond.up"):
+                ru = ru - self.up_coupling(zp)
+            return torch.cat([self._smooth_u(ru), zp])
+        return torch.cat([self._smooth_u(ru), self._smooth_p(rp)])
+
+    def _smooth_p(self, rp: torch.Tensor) -> torch.Tensor:
+        with span("precond.smooth_p"):
+            return self._solve_p(rp)
+
+    def _smooth_u(self, ru: torch.Tensor) -> torch.Tensor:
+        with span("precond.smooth_u"):
+            return self._solve_u(ru)
 
     def _chebyshev_u(self, ru: torch.Tensor) -> torch.Tensor:
         return chebyshev(self.visc_op, self.visc_diag_inv, ru, self.inner_iters_u,
@@ -249,13 +271,14 @@ class BlockStokesPrecond:
             zu, _ = gmres(self.ublock_op, ru, torch.zeros_like(ru),
                           M=lambda v: self.visc_diag_inv * v,
                           m=self.inner_iters_u, atol=0.0, rtol=1e-8,
-                          itmax=self.inner_iters_u, reduce=self.reduce)
+                          itmax=self.inner_iters_u, reduce=self.reduce, name="precond.gmres")
         elif self.method == "chebyshev":
             zu = self._chebyshev_u(ru)
         else:
             zu, _ = cg(self.visc_op, ru, torch.zeros_like(ru),
                        M_diag_inv=self.visc_diag_inv,
-                       atol=0.0, rtol=1e-8, itmax=self.inner_iters_u, reduce=self.reduce)
+                       atol=0.0, rtol=1e-8, itmax=self.inner_iters_u, reduce=self.reduce,
+                       name="precond.cg")
         if self.coarse is not None:
             # V-cycle: pre-smooth (above), coarse solve, post-smooth
             zu = self.coarse(self.visc_op, ru, zu)

@@ -1,14 +1,37 @@
-"""Timing / profiling: named wall-clock timers, memory report, device trace.
+"""Timing / profiling: the span and counter registry, memory report,
+device trace.
 
 PyTorch counterpart of ``nupgcm_tpu.utils.timing`` (reference
-src/nuPGCM.jl:57-72 ``ENABLE_TIMING``/``@ctime``): per-phase wall-clock
-timers with enable/disable, a host + device memory report, and a
-``torch.profiler`` trace of the device timeline with a reader that
-gives the device-busy time and the kernels by device time.
+src/nuPGCM.jl:57-72 ``ENABLE_TIMING``/``@ctime``).  The registry is
+what the program records about itself:
+
+* ``span(name, args=None)``: a nested, named stretch of host time.  With
+  the switch off (``set_timing``, off by default) it is one flag test
+  and a shared no-op context.  With it on, a running ``torch.profiler``
+  gets a ``record_function("npg.<name>", args)`` range, on the
+  same clock as the device's events, and the registry adds the call,
+  its host seconds and its self seconds (less the spans it covers).  A
+  span never synchronises.
+* ``count(name, n=1)``: a counter; ``applied(op)`` counts and spans one
+  application of the operator named ``op`` as ``op.<op>``.
+* ``read(tensor, site, how)``: the step's one way to move a device value
+  to the host; it returns what ``float(t)``, ``int(t)``, ``t.item()``,
+  ``t.tolist()`` or ``t.cpu().numpy()`` returns, and with the switch on
+  counts ``sync.<site>`` and times the blocking wait as the span
+  ``sync.<site>``.
+* ``build_span(name, into, sync)``: a part of a build, recorded as
+  ``build.<name>`` whatever the switch (and into the dict ``into``),
+  between two calls of ``sync`` where given.
+* ``snapshot()`` and ``reset()``.
+
+Beside it: a host + device memory report, and a ``torch.profiler``
+trace of the device timeline with a reader that gives the device-busy
+time and the kernels by device time.
 """
 
 from __future__ import annotations
 
+import functools
 import gzip
 import json
 import os
@@ -25,48 +48,138 @@ def set_timing(on: bool = True):
     ENABLE_TIMING["on"] = bool(on)
 
 
-def _synchronize(block_on) -> None:
-    """Wait for the CUDA devices of a tensor or a sequence of tensors."""
-    tensors = [block_on] if isinstance(block_on, torch.Tensor) else block_on
-    for d in {t.device for t in tensors if t.is_cuda}:
-        torch.cuda.synchronize(d)
+_SPANS = {}                   # name -> [calls, total s, self s]
+_COUNTS = defaultdict(int)    # name -> count
+_STACK = []                   # the open spans, innermost last
+_profiling = torch._C._autograd._profiler_enabled
 
 
-class Timers:
-    """Accumulating named wall-clock timers.  ``block_on=`` (a tensor or
-    a sequence of tensors) synchronises their CUDA devices before the
-    clock stops, so the time covers the device work."""
+class _Null:
+    __slots__ = ()
 
-    def __init__(self):
-        self.total = defaultdict(float)
-        self.count = defaultdict(int)
+    def __enter__(self):
+        return self
 
-    @contextmanager
-    def __call__(self, name: str, block_on=None):
-        if not ENABLE_TIMING["on"]:
-            yield
-            return
-        t0 = time.perf_counter()
-        yield
-        if block_on is not None:
-            _synchronize(block_on)
-        self.total[name] += time.perf_counter() - t0
-        self.count[name] += 1
-
-    def report(self) -> str:
-        lines = ["timers:"]
-        for name in sorted(self.total, key=lambda k: -self.total[k]):
-            n = self.count[name]
-            t = self.total[name]
-            lines.append(f"  {name}: {t:.3f}s total, {n} calls, {t / n * 1e3:.2f} ms/call")
-        return "\n".join(lines)
-
-    def reset(self):
-        self.total.clear()
-        self.count.clear()
+    def __exit__(self, *exc):
+        return False
 
 
-TIMERS = Timers()
+_NULL = _Null()
+
+
+class _Span:
+    """One open span: host seconds from ``__enter__`` to ``__exit__``,
+    less those of the spans opened inside it (``child``)."""
+
+    __slots__ = ("name", "args", "into", "sync", "rf", "t0", "child")
+
+    def __init__(self, name, args=None, into=None, sync=None):
+        self.name, self.args, self.into, self.sync = name, args, into, sync
+
+    def __enter__(self):
+        self.rf = None
+        if _profiling():
+            self.rf = torch.profiler.record_function(
+                "npg." + self.name, None if self.args is None else str(self.args))
+            self.rf.__enter__()
+        if self.sync is not None:
+            self.sync()
+        self.child = 0.0
+        _STACK.append(self)
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if self.sync is not None:
+            self.sync()
+        dt = time.perf_counter() - self.t0
+        _STACK.pop()
+        if _STACK:
+            _STACK[-1].child += dt
+        rec = _SPANS.get(self.name)
+        if rec is None:
+            rec = _SPANS[self.name] = [0, 0.0, 0.0]
+        rec[0] += 1
+        rec[1] += dt
+        rec[2] += dt - self.child
+        if self.into is not None:
+            self.into[self.name[len("build."):]] = dt
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        return False
+
+
+def span(name: str, args=None):
+    """A context manager around a stretch of the program (see the
+    module's docstring); ``args`` (str() taken) labels the profiler
+    range."""
+    if not ENABLE_TIMING["on"]:
+        return _NULL
+    return _Span(name, args)
+
+
+def count(name: str, n: int = 1):
+    if ENABLE_TIMING["on"]:
+        _COUNTS[name] += n
+
+
+def applied(op: str):
+    """One application of the operator named ``op``: ``count`` and
+    ``span`` of ``op.<op>``."""
+    if not ENABLE_TIMING["on"]:
+        return _NULL
+    name = "op." + op
+    _COUNTS[name] += 1
+    return _Span(name)
+
+
+_HOW = {"float": float, "int": int, "item": lambda t: t.item(),
+        "list": lambda t: t.tolist(), "numpy": lambda t: t.cpu().numpy()}
+
+
+def read(t, site: str, how: str = "item"):
+    """``t`` on the host, as ``how`` ("float", "int", "item", "list",
+    "numpy") converts it; with the switch on, counted and timed as
+    ``sync.<site>``."""
+    if not ENABLE_TIMING["on"]:
+        return _HOW[how](t)
+    name = "sync." + site
+    _COUNTS[name] += 1
+    with _Span(name):
+        return _HOW[how](t)
+
+
+def build_span(name: str, into: dict = None, sync=None):
+    """A part of a build, ``build.<name>``, recorded whatever the switch;
+    its seconds also go to ``into[name]`` (the last call's), and
+    ``sync()`` (a device synchronise, so the seconds cover the device
+    work) runs before the clock starts and before it stops."""
+    return _Span("build." + name, into=into, sync=sync)
+
+
+def build_step(name: str):
+    """Decorator: the function's calls as ``build_span(name)``."""
+
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapped(*args, **kwargs):
+            with _Span("build." + name):
+                return fn(*args, **kwargs)
+
+        return wrapped
+
+    return deco
+
+
+def snapshot() -> dict:
+    """{"spans": {name: {"n", "total_s", "self_s"}}, "counts": {name: n}}."""
+    return {"spans": {k: {"n": n, "total_s": t, "self_s": s} for k, (n, t, s) in _SPANS.items()},
+            "counts": dict(_COUNTS)}
+
+
+def reset():
+    _SPANS.clear()
+    _COUNTS.clear()
 
 
 def memory_status() -> str:

@@ -1,6 +1,6 @@
 """The port's measurement path on the CPU: ``multi_step`` and ``retune``
 against the JAX package, the tools of ``nupgcm_tpu_torch.tools`` at a
-tiny size, ``utils.timing``, and the tail of ``chip_smoke.py``.
+tiny size, ``utils.timing`` (its registry and traces), and the tail of ``chip_smoke.py``.
 
 Parity: from the same numpy state and element tensors (the ``pair``
 fixture of tests/test_torch_model.py, both preconditioner branches),
@@ -180,22 +180,48 @@ def test_difference_quotient_cancels_constants():
 
 
 def test_timers_and_memory_status():
-    t = timing.Timers()
+    """The registry: off, a span is one shared no-op and nothing counts;
+    on, spans nest with self time, counters add, a read returns what the
+    call it stands for returns and is counted and timed at its site; a
+    build span records whatever the switch, into its dict too."""
     timing.set_timing(False)
-    with t("off"):
-        pass
-    assert not t.total
+    timing.reset()
+    assert timing.span("a") is timing.span("b")
+    with timing.span("off"):
+        timing.count("c")
+    t = torch.tensor([1.5, 2.5], dtype=torch.float32)
+    assert timing.read(t[0], "x", "float") == 1.5
+    assert timing.snapshot() == {"spans": {}, "counts": {}}
     timing.set_timing(True)
     try:
-        with t("a", block_on=torch.zeros(3)):
+        with timing.span("a", args=3):
+            with timing.span("a.b"):
+                pass
+            with timing.span("a.b"):
+                pass
+        timing.count("c", 2)
+        with timing.applied("inv"):
             pass
-        with t("a", block_on=[torch.zeros(1), torch.ones(1)]):
-            pass
+        got = [timing.read(t[0], "x", "float"), timing.read(torch.tensor(3), "x", "int"),
+               timing.read(t[1], "x"), timing.read(t, "y", "list"),
+               timing.read(t, "y", "numpy")]
     finally:
         timing.set_timing(False)
-    assert t.count["a"] == 2 and "a: " in t.report()
-    t.reset()
-    assert not t.count
+    assert got[:4] == [1.5, 3, 2.5, [1.5, 2.5]] and type(got[1]) is int
+    assert got[4].dtype == np.float32 and got[4].tolist() == [1.5, 2.5]
+    snap = timing.snapshot()
+    a, b = snap["spans"]["a"], snap["spans"]["a.b"]
+    assert (a["n"], b["n"]) == (1, 2)
+    assert a["self_s"] <= a["total_s"] and a["total_s"] >= b["total_s"]
+    assert snap["counts"] == {"c": 2, "op.inv": 1, "sync.x": 3, "sync.y": 2}
+    assert snap["spans"]["sync.x"]["n"] == 3 and snap["spans"]["op.inv"]["n"] == 1
+    timing.reset()
+    into = {}
+    with timing.build_span("part", into, sync=lambda: None):
+        pass
+    assert set(into) == {"part"} and set(timing.snapshot()["spans"]) == {"build.part"}
+    timing.reset()
+    assert timing.snapshot() == {"spans": {}, "counts": {}}
     assert npt.memory_status().startswith("host maxrss:")
     assert npt.print_memory_status is timing.print_memory_status
 
