@@ -71,9 +71,10 @@ Phases (any failed check raises, and the script exits non-zero):
   8. full physics (convection + eddy closures, wind, refresh_precond):
      8a. tools.northstar.build_model("full") on its generated
          bowl3D(0.1, 0.5, nz=7), in f32 and then in f64:
-         run(max_steps=30, n_precond_refresh=10) (an eddy rebuild inside
-         steps 10, 20 and 30, each followed by a refresh; both seen in
-         the operators), every solve under its cap, and the state at
+         run(max_steps=30) (an eddy rebuild inside steps 10, 20 and 30,
+         each followed by the preconditioner's rebuild, the model's
+         default refresh_on_rebuild; both seen in the operators), every
+         solve under its cap, and the state at
          step 30 against tests/data/bowl3d_full_30.npz (JAX, CPU, f64,
          the same run; FE-integral relative L2).  f64 is held to 1e-3
          for u and b, and a checkpoint at step 15 resumed to 30 to
@@ -82,8 +83,9 @@ Phases (any failed check raises, and the script exits non-zero):
          sharp switches amplify such last-bit differences).  f32 prints
          its distance without a bar: the same amplification carries the
          packages' tolerance-level differences to several 1e-2 of
-         max|b| in 30 steps even in f64, and f32 rounding adds to it.  A refresh
-         after each rebuild, not after 25 steps: on the preconditioner
+         max|b| in 30 steps even in f64, and f32 rounding adds to it.  The
+         preconditioner is rebuilt with each eddy rebuild, as the
+         golden's refresh after each rebuild does: on the preconditioner
          of the build-time viscosity FGMRES reaches its cap of 500 in
          the steps after the step-20 rebuild, in f32 and f64 (python
          tests/test_torch_production.py counts f32).
@@ -756,7 +758,9 @@ def run_checked(model, state, K, tag, card_name, inv_capped_ok=False, **run_kw):
     launches, plain = dict(K.launches), dict(K.plain_calls)
     n = len(auxs)
     steps_s = wall - sum(spent)
-    print(f"[{tag}] {n} steps in {steps_s:.3f} s = {n / steps_s:.3f} steps/s, plus "
+    rebuilt = [a for a in auxs if a.get("rebuilt")]
+    print(f"[{tag}] {n} steps in {steps_s:.3f} s = {n / steps_s:.3f} steps/s (of which "
+          f"{len(rebuilt)} eddy rebuilds in {sum(a['rebuild_s'] for a in rebuilt):.3f} s), plus "
           f"{len(spent)} refresh_precond in {sum(spent):.3f} s ({card_name})", flush=True)
     print(f"[{tag}] evo_iters per step {[int(a['evo_iters']) for a in auxs]}", flush=True)
     print(f"[{tag}] inv_iters per step {[int(a['inv_iters']) for a in auxs]}", flush=True)
@@ -781,8 +785,8 @@ def run_checked(model, state, K, tag, card_name, inv_capped_ok=False, **run_kw):
 
 
 def phase_northstar_full(K, card_name):
-    """8a: the north-star full-physics configuration, 30 steps with a
-    refresh after each eddy rebuild, in f32 and in f64."""
+    """8a: the north-star full-physics configuration, 30 steps with the
+    preconditioner rebuilt with each eddy rebuild, in f32 and in f64."""
     import torch
 
     for dtype in (torch.float32, torch.float64):
@@ -829,8 +833,8 @@ def northstar_run(K, card_name, dtype):
             ck.save_state(m, st, str(ck_path))
             at15["ops"] = {k: v.clone() for k, v in m.ops.items()}
 
-    # run calls the plot callback before its refresh: a rebuild inside
-    # step i shows at i, the refresh after step i at i + 1
+    # the eddy rebuild inside step i, and the preconditioner's rebuild
+    # after it, show at i
     changed = {"A_uu_e": [], "visc_e": []}
     prev = {k: model.ops[k].clone() for k in changed}
 
@@ -842,13 +846,14 @@ def northstar_run(K, card_name, dtype):
 
     state, _ = run_checked(
         model, model.rest_state(), K, tag, card_name, n_info=0, max_steps=30,
-        n_precond_refresh=10, n_save=1, save_callback=save, n_plot=1, plot_callback=watch)
+        n_save=1, save_callback=save, n_plot=1, plot_callback=watch)
     peak = torch.cuda.max_memory_allocated()
     print(f"[{tag}] A_uu_e changed after steps {changed['A_uu_e']}, visc_e after "
           f"{changed['visc_e']}; peak device memory {peak / 2**20:.1f} MiB ({card_name})",
           flush=True)
     check(set(changed["A_uu_e"]) >= {10, 20, 30}, f"{tag}: an eddy rebuild was not seen")
-    check(changed["visc_e"] == [11, 21], f"{tag}: the refreshes were not seen where expected")
+    check(changed["visc_e"] == [10, 20, 30],
+          f"{tag}: the preconditioner's rebuilds were not seen where expected")
 
     ref = np.load(ROOT / "tests" / "data" / "bowl3d_full_30.npz")
     us, bs = fe.spaces.u_space, fe.spaces.b_space
@@ -868,15 +873,13 @@ def northstar_run(K, card_name, dtype):
     check(abs(t - t_ref) <= 1e-3 * t_ref, f"{tag}: the adaptive clock drifted from the golden")
     check(eb < 1e-3 and eu < 1e-3, f"{tag}: the state disagrees with the golden file")
 
-    # resume from the checkpoint with its operators: a refresh after
-    # step 20, as in the straight run (the one after 30 does not touch
-    # the state at 30)
+    # resume from the checkpoint with its operators: the step-20
+    # rebuild and the preconditioner's, as in the straight run
     model.ops = at15["ops"]
     st15 = ck.load_state(model, str(ck_path))
     check(st15.step == 15 and st15.u.dtype == dtype and st15.u.is_cuda,
           f"{tag}: the checkpoint holds another step, or loaded off the model's device")
-    st_r = model.run(st15, n_info=0, max_steps=20, n_precond_refresh=5)
-    st_r = model.run(st_r, n_info=0, max_steps=30)
+    st_r = model.run(st15, n_info=0, max_steps=30)
     du = float((st_r.u - state.u).abs().max() / state.u.abs().max())
     db = float((st_r.b - state.b).abs().max() / state.b.abs().max())
     print(f"[{tag}] resume 15 -> 30: max|du| = {du:.3e} max|u|, max|db| = {db:.3e} max|b| "

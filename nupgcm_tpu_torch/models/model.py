@@ -21,8 +21,12 @@ on a CUDA device, their plain versions on the CPU.
 Closures (reference src/inputs.jl:63-137): convection rebuilds the
 vertical diffusivity from the current b every step; the eddy closure
 rebuilds the inversion blocks from the current b every 10 steps
-(reference src/model.jl:160-170) and ``refresh_precond`` rebuilds the
-preconditioner on the caller's cadence.
+(reference src/model.jl:160-170) and, with ``refresh_on_rebuild`` (the
+default), every nu-dependent part of the preconditioner from the same
+viscosity right after.  The reference, and the JAX package, keep the
+preconditioner built for the old viscosity (``refresh_on_rebuild=False``
+here), on which FGMRES can stall at its cap until the caller's next
+``refresh_precond``.
 
 Preconditioner branches: the P1-P1 saddle-coarse level (the default;
 dense inverse on small meshes; on large ones iterative, its operators
@@ -55,13 +59,14 @@ from ..ops import blocks, build
 from ..ops.assembled import AssembledBlocks, AssembledSaddle, vertex_pattern
 from ..ops.element import ElementOperator, SaddleOperator
 from ..ops.sparse import MaskedOperator
+from ..solvers import graphed
 from ..solvers.cg import cg
 from ..solvers.gmres import gmres
 from ..solvers.preconditioners import (AggregateCoarseCorrection,
                                        BlockStokesPrecond, CoarseCorrection,
                                        SaddleCoarseCorrection, power_lmax)
 from ..utils.precision import precision_ctx, scoped_method
-from ..utils.timing import build_span, read, span
+from ..utils.timing import build_span, count, read, span
 from .config import Forcings, Parameters, SurfaceFluxBC
 from .fedata import FEData
 from .timesteppers import BDF2
@@ -74,6 +79,10 @@ class BlowUpError(RuntimeError):
 # per-step diagnostics of ``PGModel.step`` (the JAX step's aux keys)
 AUX_KEYS = ("evo_iters", "evo_res", "inv_iters", "inv_res", "u_max", "b_max",
             "b_free_min", "b_free_max", "db_dt_max", "cfl_dt")
+# beside them in ``step``'s aux, not stacked by ``multi_step``: 1.0 where the
+# step ended in an eddy rebuild, and the host seconds of that rebuild and
+# of the preconditioner rebuild after it (0.0 on every other step)
+REBUILD_KEYS = ("rebuilt", "rebuild_s")
 
 
 def _aggregate_vertices(cd_p: np.ndarray, nv: int, max_agg: int):
@@ -206,6 +215,18 @@ class PGModel:
     return (``utils/precision.py``; the JAX model scopes its traces so,
     ``nupgcm_tpu/models/model.py:341-357``).  ``None`` leaves the
     process's setting in force.
+
+    ``refresh_on_rebuild=True`` (the default) follows each in-step eddy
+    rebuild with a rebuild of the preconditioner from the same viscosity
+    (what ``refresh_precond`` rebuilds after its own eddy rebuild);
+    ``False`` keeps the preconditioner frozen between the caller's
+    refreshes, as the reference and the JAX package do.
+
+    On a CUDA device the inversion preconditioner with the ``inner_gmres``
+    smoother and dense coarse levels runs from two CUDA graphs, captured
+    once and again only where a tensor it reads is set anew
+    (``solvers/graphed.py``: the same arithmetic, with one device read an
+    application instead of eight).
     """
 
     def __init__(
@@ -236,6 +257,7 @@ class PGModel:
         saddle_coarse_l2: Optional[bool] = None,
         assembly_chunk: int = 8192,
         matmul_precision: Optional[str] = "float32",
+        refresh_on_rebuild: bool = True,
     ):
         if dtype not in (torch.float32, torch.float64):
             raise ValueError(f"dtype must be torch.float32 or torch.float64, got {dtype}")
@@ -314,6 +336,8 @@ class PGModel:
         self.inner_iters = (inner_iters_u, inner_iters_p)
         self.assembly_chunk = assembly_chunk
         self.matmul_precision = matmul_precision
+        self.refresh_on_rebuild = refresh_on_rebuild
+        self._graphed = None  # (what it read, the captured preconditioner)
 
         self._build_s = {}
         with precision_ctx(matmul_precision):
@@ -620,7 +644,8 @@ class PGModel:
         A = A.reshape(Nc, Nc)
         free = c["tg_coarse_free"].to(torch.float64)
         A = free[:, None] * A * free[None, :] + torch.diag(1.0 - free)
-        ops["coarse_inv"] = torch.cholesky_inverse(torch.linalg.cholesky(A)).to(self.dtype)
+        self._put(ops, "coarse_inv",
+                  torch.cholesky_inverse(torch.linalg.cholesky(A)).to(self.dtype))
 
     def _assemble_saddle_coarse(self, ops, nu_q=None):
         """P1-P1 COARSE SADDLE system (velocity AND pressure) -- the
@@ -643,8 +668,8 @@ class PGModel:
         """
         if self.saddle_coarse_dense:
             with build_span("saddle_coarse", self._build_s, self._sync):
-                ops["saddle_coarse_inv"] = self._coarse_inverse(
-                    self._saddle_coarse_matrix(nu_q)).to(self.dtype)
+                self._put(ops, "saddle_coarse_inv", self._coarse_inverse(
+                    self._saddle_coarse_matrix(nu_q)).to(self.dtype))
         else:
             self._assemble_saddle_coarse_elems(ops, nu_q)
 
@@ -1070,6 +1095,48 @@ class PGModel:
         )
         return M, True
 
+    @staticmethod
+    def _dense_levels(ops, M) -> bool:
+        """Whether each coarse level of the block preconditioner ``M`` is
+        applied from a dense inverse (no inner iterative solve)."""
+        return ((M.saddle_coarse is None or "saddle_coarse_inv" in ops)
+                and (M.coarse is None or "coarse_inv" in ops))
+
+    def _precond_key(self, ops, M) -> tuple:
+        """What a captured application of the block preconditioner ``M``
+        holds fixed: the address of every tensor of ``ops`` and of the
+        held operators (it reads their values at each replay, so a write
+        in place is seen), and the numbers it took on the host: the
+        inner iteration counts, the Chebyshev bounds (the velocity one
+        only where the two-grid post-smooth reads it)."""
+        ts = [(k, v) for k, v in ops.items() if torch.is_tensor(v)]
+        ts += [(f"{k}.{a}", getattr(h, a)) for k, h in self._held.items()
+               for a in ("vals", "up_vals") if torch.is_tensor(getattr(h, a, None))]
+        return (M.inner_iters_u, M.inner_iters_p, M.lmax_p,
+                (M.lmax_u, M.cond_ratio) if M.coarse is not None else None,
+                *sorted((k, t.data_ptr()) for k, t in ts))
+
+    def _graphed_precond(self, ops, M):
+        """The captured application of ``M``: the model's last one where
+        the key is unchanged (the rebuilds write every tensor in place,
+        ``_put``), else ``M`` captured anew."""
+        key = self._precond_key(ops, M)
+        if self._graphed is None or self._graphed[0] != key:
+            self._graphed = (key, graphed.GraphedPrecond(M))
+        return self._graphed[1]
+
+    @staticmethod
+    def _put(ops, key: str, value: torch.Tensor):
+        """``ops[key] = value``, written into the tensor ``ops`` holds there
+        where shape, dtype and device agree: a captured preconditioner
+        reads it by address."""
+        old = ops.get(key)
+        if (torch.is_tensor(old) and old.shape == value.shape and old.dtype == value.dtype
+                and old.device == value.device):
+            old.copy_(value)
+        else:
+            ops[key] = value
+
     def _solve_saddle(self, ops, y_full, x0):
         """FGMRES on A x = y over free dofs (Dirichlet dofs take their
         BC values), then the zero-mean pressure projection (reference:
@@ -1081,6 +1148,9 @@ class PGModel:
         y = torch.where(A.free_bool, y_full - Amat.matvec(xd), c["xdiri_inv"])
         with span("invert.precond_setup"):
             M, flexible = self._make_inv_precond(ops)
+            if (self.device.type == "cuda" and graphed.eligible(M)
+                    and self._dense_levels(ops, M)):
+                M = self._graphed_precond(ops, M)
         with span("invert.fgmres"):
             x, stats = gmres(A, y, x0, M=M, flexible=flexible, name="fgmres", **self.inv_opts)
         n_u = self.fe.spaces.n_u
@@ -1196,16 +1266,31 @@ class PGModel:
     def refresh_precond(self, ops, state: State):
         """Preconditioner refresh from the CURRENT eddy viscosity;
         returns a new ops dict (``ops`` itself when the eddy closure is
-        off).
+        off): the eddy rebuild of the inversion blocks from
+        ``state.b`` (the values the next in-step rebuild would produce)
+        and ``_rebuild_precond`` from the same viscosity.
 
         The reference rebuilds the inversion matrix every 10 steps but
         keeps its preconditioner frozen (src/model.jl:160-170); as nu
         drifts from the build-time field (up to f^2/N2_min in
         destratified boundary layers) the frozen spectral bounds and
         coarse operators go stale and the outer iteration count grows.
-        This recomputes every nu-dependent preconditioner operator from
-        ``state.b``: the inversion blocks (the values the next eddy
-        rebuild would produce), the smoother block with its diagonal and
+        With ``refresh_on_rebuild`` the step does this after each of
+        its eddy rebuilds; ``run(n_precond_refresh=...)`` calls it on a
+        cadence besides (the only refresh with ``refresh_on_rebuild``
+        off).  Call between steps.  Every element tensor, diagonal and
+        dense inverse is rebuilt in place, so the returned dict shares
+        them with ``ops`` (one copy in memory)."""
+        if not self.forcings.eddy_param.is_on:
+            return ops
+        with span("refresh"):
+            ops = dict(ops)
+            return self._rebuild_precond(ops, self._eddy_rebuild(ops, state))
+
+    def _rebuild_precond(self, ops, nu_q):
+        """Rebuild every nu-dependent preconditioner operator of ``ops``
+        from the eddy viscosity ``nu_q`` (quadrature points), in ``ops``
+        itself, and return it: the smoother block with its diagonal and
         spectral bound, the two-grid coarse level (its element tensors
         and diagonal, or its dense inverse), the saddle-coarse tensors
         with their diagonal, pin, bound and aggregate-level inverse (or
@@ -1214,40 +1299,39 @@ class PGModel:
         branch too, which never sets it, and raises ``KeyError``; here
         the dense branch rebuilds ``coarse_inv``.)
 
-        Memory: the element tensors (``A_*_e``, ``visc_e``, ``sc_*``)
+        Memory: the element tensors (``visc_e``, ``coarse_e``, ``sc_*``)
         are rebuilt chunk by chunk INTO the tensors ``ops`` holds, so
-        the returned dict shares them with ``ops`` and peak device
-        memory holds one copy; the small tensors are new.  Call between
-        steps; ``run(n_precond_refresh=...)`` does it on a cadence."""
-        fr = self.forcings
-        if not fr.eddy_param.is_on:
-            return ops
-        with span("refresh"):
-            c, sp = self.const, self.fe.spaces
-            ops = dict(ops)
-            nu_q = self._eddy_rebuild(ops, state)
-            self._assemble_visc_elems(nu_q, out=ops["visc_e"])
-            visc_op = MaskedOperator(self._visc_operator(ops["visc_e"]), c["free_u"])
-            ops["visc_dinv"] = 1.0 / visc_op.diagonal()
-            ops["lmax_u"] = power_lmax(visc_op, ops["visc_dinv"], sp.n_u)
-            if self.twogrid:
-                self._assemble_coarse(ops, nu_q)
-            if self.saddle_coarse:
-                self._assemble_saddle_coarse(ops, nu_q)
-                if "sc_visc_e" in ops:
-                    cvisc = MaskedOperator(self._coarse_operator("sc_visc_e"),
-                                           c["tg_coarse_free"])
-                    ops["sc_visc_dinv"] = 1.0 / cvisc.diagonal()
-            return ops
+        peak device memory holds one copy; the smoother's diagonal and
+        bound and the dense inverses are written into the tensors ``ops``
+        holds too (``_put``: a captured preconditioner reads them by
+        address); the iterative levels' small tensors and the aggregate
+        inverse are new.  A caller that keeps the old values passes a
+        copy of them."""
+        count("precond.refresh")
+        c, sp = self.const, self.fe.spaces
+        self._assemble_visc_elems(nu_q, out=ops["visc_e"])
+        visc_op = MaskedOperator(self._visc_operator(ops["visc_e"]), c["free_u"])
+        self._put(ops, "visc_dinv", 1.0 / visc_op.diagonal())
+        self._put(ops, "lmax_u", power_lmax(visc_op, ops["visc_dinv"], sp.n_u))
+        if self.twogrid:
+            self._assemble_coarse(ops, nu_q)
+        if self.saddle_coarse:
+            self._assemble_saddle_coarse(ops, nu_q)
+            if "sc_visc_e" in ops:
+                cvisc = MaskedOperator(self._coarse_operator("sc_visc_e"),
+                                       c["tg_coarse_free"])
+                ops["sc_visc_dinv"] = 1.0 / cvisc.diagonal()
+        return ops
 
     def _eddy_rebuild(self, ops, state: State):
         """Eddy-viscosity inversion-matrix rebuild (reference
         src/model.jl:160-170), written into ``ops``' own inversion
         blocks (one copy in memory), with the assembled P2-P1 coupling
-        refilled from them; the preconditioner is kept, as the
-        reference keeps it.  Returns the viscosity at the quadrature
+        refilled from them.  The preconditioner is left to the caller
+        (``_rebuild_precond``).  Returns the viscosity at the quadrature
         points."""
         with span("closures"):
+            count("closures.rebuild")
             nu_q = self.forcings.eddy_param.nu(self.const["f_eddy_q"], self._abz(state.b))
             self._assemble_inversion_elems(nu_q,
                                            out=(ops["A_uu_e"], ops["A_up_e"], ops["A_pu_e"]))
@@ -1262,7 +1346,13 @@ class PGModel:
         """One timestep: (new_state, aux) with solver iteration counts
         and the progress-line diagnostics (Python numbers).  With the
         eddy closure on, every 10th step rebuilds the inversion blocks
-        of ``self.ops`` from the new buoyancy."""
+        of ``self.ops`` from the new buoyancy and, with
+        ``refresh_on_rebuild``, the preconditioner from the same
+        viscosity (a new dict set as ``self.ops``, its element tensors
+        written in place).  ``aux`` also holds ``REBUILD_KEYS``:
+        ``rebuilt`` (1.0 on such a step) and ``rebuild_s``, the host
+        seconds of both rebuilds between two device synchronises (0.0
+        on every other step)."""
         with span("step", state.step):
             dt_old = state.dt
             dt_ = self._update_dt(state)
@@ -1273,8 +1363,16 @@ class PGModel:
             u_new, p_new, inv_stats = self._invert_pure(self.ops, b_new, x0)
             new_state = State(u=u_new, p=p_new, b=b_new, u_prev=state.u, b_prev=state.b,
                               t=state.t + dt_, dt=dt_, step=state.step + 1)
+            rebuilt, rebuild_s = 0.0, 0.0
             if self.forcings.eddy_param.is_on and new_state.step % 10 == 0:
-                self._eddy_rebuild(self.ops, new_state)
+                self._sync()
+                t0 = time.perf_counter()
+                nu_q = self._eddy_rebuild(self.ops, new_state)
+                if self.refresh_on_rebuild:
+                    with span("refresh"):
+                        self.ops = self._rebuild_precond(dict(self.ops), nu_q)
+                self._sync()
+                rebuilt, rebuild_s = 1.0, time.perf_counter() - t0
             with span("step.aux"):
                 freeb = self.const["free_b"].bool()
                 u_max = torch.abs(u_new).max()
@@ -1289,7 +1387,8 @@ class PGModel:
                 ]), "step.aux", "list")
             aux = dict(zip(AUX_KEYS[4:], diag))
             aux.update(evo_iters=evo_stats.iterations, evo_res=evo_stats.residual,
-                       inv_iters=inv_stats.iterations, inv_res=inv_stats.residual)
+                       inv_iters=inv_stats.iterations, inv_res=inv_stats.residual,
+                       rebuilt=rebuilt, rebuild_s=rebuild_s)
             return new_state, aux
 
     @scoped_method
@@ -1397,7 +1496,9 @@ class PGModel:
         steps through ``multi_step``; logging, saving and the refresh
         cadence then apply at block granularity.  ``n_precond_refresh``
         calls ``refresh_precond`` once that many steps have passed since
-        the last refresh (eddy closure only)."""
+        the last refresh (eddy closure only): with ``refresh_on_rebuild``
+        these refreshes come on top of the step's own after each eddy
+        rebuild."""
         t_stop = float(self.ts.t_stop)
         t0 = t_last_info = time.time()
         i0 = i = last_refresh = state.step

@@ -243,7 +243,8 @@ class PreparedLaunch:
     """One K1/K2 application on fixed tensors, checked and prepared
     once.  A call reads the current stream, takes as y the spare buffer
     the previous launch zeroed on that stream (a fresh zero vector the
-    first time or after a change of stream), allocates the next spare,
+    first time, after a change of stream, or across the start or end of
+    a graph capture: ``new_capture``), allocates the next spare,
     makes one ctypes call (the launch, which zeroes the spare), and
     counts the launch."""
 
@@ -282,14 +283,15 @@ class PreparedLaunch:
                              f"of shape {self.x_shape} on cuda:{self.index}, got {x.dtype} "
                              f"{tuple(x.shape)} on {x.device}")
         stream = _raw_stream(self.index)
-        y = self._spare if stream == self._stream else x.new_zeros(self.y_len)
+        key = (stream, _capture_epoch[0])
+        y = self._spare if key == self._stream else x.new_zeros(self.y_len)
         spare = x.new_empty(self.y_len)
         err = self._fn(self._addr, x.data_ptr(), y.data_ptr(), spare.data_ptr(), stream)
         if err != 0:
             self._spare = self._stream = None
             raise RuntimeError(f"{self.shape_key} launch failed: "
                                f"{self._lib.nupgcm_error_string(err).decode()}")
-        self._spare, self._stream = spare, stream
+        self._spare, self._stream = spare, key
         launches[self.counter] += 1
         shape_launches[self.shape_key] += 1
         return y
@@ -297,6 +299,16 @@ class PreparedLaunch:
 
 def _raw_stream(index: int) -> int:
     return torch._C._cuda_getCurrentRawStream(index)
+
+
+_capture_epoch = [0]
+
+
+def new_capture() -> None:
+    """Called where a CUDA graph capture starts and ends: a prepared
+    launch then takes a fresh zero vector as y, not a spare zeroed
+    outside the graph (whose replays would not zero it again)."""
+    _capture_epoch[0] += 1
 
 
 def _check_float(t, dtype, device, what):

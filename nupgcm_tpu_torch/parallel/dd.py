@@ -109,7 +109,11 @@ class DDModel:
     ``group``: a ``ShardGroup`` of ``n_shards`` shards (default: this
     process holds them all).  Every rank builds the whole partition on
     the host and moves only its own shards' tables to the model's
-    device."""
+    device.
+
+    The eddy closure's in-step rebuild renews the inversion blocks alone:
+    the preconditioner stays frozen until ``refresh_precond``, as in the
+    reference, whatever the model's ``refresh_on_rebuild``."""
 
     def __init__(self, model, n_shards: int, group: ShardGroup = None):
         self.model = model
@@ -717,7 +721,8 @@ class DDModel:
         if self.eddy_on:
             # eddy-viscosity inversion-block rebuild every 10 steps
             # (reference src/model.jl:160-170) from this shard's own
-            # cells; the preconditioner is kept, as on one device
+            # cells; the preconditioner is kept (the reference's frozen
+            # one: PGModel's refresh_on_rebuild does not reach here)
             rebuilt = (self._eddy_blocks(Gb3, b_new) if (stp + 1) % 10 == 0 else A)
             out.update(zip(EDDY_KEYS, rebuilt))
         return out, aux

@@ -48,6 +48,23 @@ def _givens(a, b):
     return a / r, b / r, r
 
 
+def _rotate(h, j, R, g, cs, sn):
+    """Column ``j`` of the Hessenberg matrix (``h``, its j + 2 entries)
+    into the triangular factor: the earlier rotations, then its own;
+    returns the residual norm after it."""
+    for i in range(j):
+        hi, hi1 = h[i], h[i + 1]
+        h[i] = cs[i] * hi + sn[i] * hi1
+        h[i + 1] = -sn[i] * hi + cs[i] * hi1
+    c, s, rr = _givens(h[j], h[j + 1])
+    cs[j], sn[j] = c, s
+    R[:j, j] = h[:j]
+    R[j, j] = rr
+    g[j + 1] = -s * g[j]
+    g[j] = c * g[j]
+    return abs(g[j + 1])
+
+
 def gmres(op, b, x0, *, M=None, m=20, atol=1e-6, rtol=1e-6, itmax=0,
           flexible=False, reduce=None, name="gmres"):
     """Solve op(x) = b with restarted (F)GMRES(m).
@@ -109,18 +126,7 @@ def gmres(op, b, x0, *, M=None, m=20, atol=1e-6, rtol=1e-6, itmax=0,
                     hnorm = norm(w)
                     V[j + 1] = w / _safe(hnorm)
                 h = read(torch.cat([h1 + h2, hnorm[None]]), "gmres.h", "numpy")  # (j + 2,)
-                # apply existing rotations to the new column
-                for i in range(j):
-                    hi, hi1 = h[i], h[i + 1]
-                    h[i] = cs[i] * hi + sn[i] * hi1
-                    h[i + 1] = -sn[i] * hi + cs[i] * hi1
-                c, s, rr = _givens(h[j], h[j + 1])
-                cs[j], sn[j] = c, s
-                R[:j, j] = h[:j]
-                R[j, j] = rr
-                g[j + 1] = -s * g[j]
-                g[j] = c * g[j]
-                res = abs(g[j + 1])
+                res = _rotate(h, j, R, g, cs, sn)
                 j += 1
         if j == 0:
             return x, res, 0
@@ -137,3 +143,60 @@ def gmres(op, b, x0, *, M=None, m=20, atol=1e-6, rtol=1e-6, itmax=0,
         r = None
         total += j
     return x, SolveStats(iterations=total, residual=float(res), converged=bool(res <= tol))
+
+
+# -- one GMRES(m) cycle from zero, its device and host halves apart ------
+def arnoldi(op, b, M, m, name="gmres"):
+    """The device half of ``gmres(op, b, 0, M=M, m=m, itmax=m)`` (left
+    preconditioning): all ``m`` Arnoldi steps, with no read.  Returns
+    (V (m + 1, n), hb): ``hb`` is [beta, H] flat, H (m, m + 1) holding in
+    row j the j + 2 entries that step j reads.  ``lsq`` finishes the
+    solve on the host from ``hb``; the steps past its stop are not used.
+    The same operations as ``gmres``'s, so the same numbers (``op(0)``,
+    exactly zero, is not applied)."""
+    n = b.shape[0]
+    r = M(b)
+    it_name, pre_name, op_name, gs_name = (name + k for k in (".iter", ".precond", ".op", ".gs"))
+    beta = torch.sqrt(torch.dot(r, r))
+    V = b.new_zeros((m + 1, n))
+    V[0] = r / _safe(beta)
+    H = b.new_zeros((m, m + 1))
+    for j in range(m):
+        with span(it_name):
+            with span(op_name):
+                w = op(V[j])
+            with span(pre_name):
+                w = M(w)
+            with span(gs_name):
+                Vj = V[: j + 1]
+                h1 = Vj @ w
+                w = w - Vj.T @ h1
+                h2 = Vj @ w
+                w = w - Vj.T @ h2
+                hnorm = torch.sqrt(torch.dot(w, w))
+                V[j + 1] = w / _safe(hnorm)
+            H[j, : j + 2] = torch.cat([h1 + h2, hnorm[None]])
+    return V, torch.cat([beta[None], H.reshape(-1)])
+
+
+def lsq(hb, m, atol, rtol):
+    """The host half of that cycle from ``arnoldi``'s ``hb`` (a host
+    array in the working precision): (y, j), the combination of the
+    first j basis vectors that ``gmres`` adds to x0, with j = 0 (and y
+    None) where it would return x0."""
+    sdt = hb.dtype.type
+    beta0 = float(hb[0])
+    if not beta0 > atol + rtol * beta0:
+        return None, 0
+    tol = atol + rtol * beta0
+    H = hb[1:].reshape(m, m + 1)
+    R = np.zeros((m, m), sdt)
+    g = np.zeros(m + 1, sdt)
+    g[0] = hb[0]
+    cs = np.zeros(m, sdt)
+    sn = np.zeros(m, sdt)
+    j, res = 0, g[0]
+    while j < m and res > tol:
+        res = _rotate(H[j, : j + 2].copy(), j, R, g, cs, sn)
+        j += 1
+    return scipy.linalg.solve_triangular(R[:j, :j], g[:j], lower=False), j

@@ -18,7 +18,9 @@ import torch
 
 from ..utils.timing import span
 from .cg import cg
-from .gmres import gmres
+from .gmres import arnoldi, gmres
+
+INNER_RTOL = 1e-8  # the inner solves' relative tolerance (no absolute one)
 
 
 def chebyshev(op, dinv: torch.Tensor, r: torch.Tensor, k: int,
@@ -218,7 +220,7 @@ class BlockStokesPrecond:
         if self.method == "cg":
             zp, _ = cg(self.mp_op, rp, torch.zeros_like(rp),
                        M_diag_inv=self.mp_diag_inv,
-                       atol=0.0, rtol=1e-8, itmax=self.inner_iters_p, reduce=self.reduce,
+                       atol=0.0, rtol=INNER_RTOL, itmax=self.inner_iters_p, reduce=self.reduce,
                        name="precond.cg")
             return zp
         # pressure mass is well conditioned under Jacobi: tight ratio
@@ -269,18 +271,49 @@ class BlockStokesPrecond:
             # rotation-dominated regime: the skew Coriolis term dominates
             # the velocity block, so smooth the FULL (nonsymmetric) block
             zu, _ = gmres(self.ublock_op, ru, torch.zeros_like(ru),
-                          M=lambda v: self.visc_diag_inv * v,
-                          m=self.inner_iters_u, atol=0.0, rtol=1e-8,
+                          M=self._jacobi_u,
+                          m=self.inner_iters_u, atol=0.0, rtol=INNER_RTOL,
                           itmax=self.inner_iters_u, reduce=self.reduce, name="precond.gmres")
         elif self.method == "chebyshev":
             zu = self._chebyshev_u(ru)
         else:
             zu, _ = cg(self.visc_op, ru, torch.zeros_like(ru),
                        M_diag_inv=self.visc_diag_inv,
-                       atol=0.0, rtol=1e-8, itmax=self.inner_iters_u, reduce=self.reduce,
+                       atol=0.0, rtol=INNER_RTOL, itmax=self.inner_iters_u, reduce=self.reduce,
                        name="precond.cg")
+        return self._post_u(ru, zu)
+
+    def _jacobi_u(self, v: torch.Tensor) -> torch.Tensor:
+        return self.visc_diag_inv * v
+
+    def _post_u(self, ru: torch.Tensor, zu: torch.Tensor) -> torch.Tensor:
         if self.coarse is not None:
             # V-cycle: pre-smooth (above), coarse solve, post-smooth
             zu = self.coarse(self.visc_op, ru, zu)
             zu = zu + self._chebyshev_u(ru - self.visc_op(zu))
         return zu
+
+    # -- the inner_gmres application in two device halves (graphed.py) --
+    def split_head(self, r: torch.Tensor):
+        """The application up to the inner GMRES's host half, with no
+        read: (ru, zp, V, hb) for ``split_tail`` and ``gmres.lsq``."""
+        ru, rp = r[: self.nu_dofs], r[self.nu_dofs:]
+        zp = self._smooth_p(rp)
+        if self.up_coupling is not None:
+            with span("precond.up"):
+                ru = ru - self.up_coupling(zp)
+        with span("precond.smooth_u"):
+            V, hb = arnoldi(self.ublock_op, ru, self._jacobi_u, self.inner_iters_u,
+                            name="precond.gmres")
+        return ru, zp, V, hb
+
+    def split_tail(self, r, ru, zp, V, y, j: int) -> torch.Tensor:
+        """The rest of the application from the inner solve's first j
+        basis vectors and their weights ``y`` (a device vector)."""
+        zu = torch.zeros_like(ru)
+        if j:
+            zu = zu + V[:j].T @ y[:j]
+        z = torch.cat([self._post_u(ru, zu), zp])
+        if self.saddle_coarse is not None:
+            z = self.saddle_coarse(self.outer_op, r, z)
+        return z

@@ -148,7 +148,11 @@ def _eddy2d(npg, **kw):
 
 @pytest.fixture(scope="module")
 def eddy_pair():
-    return _eddy2d(npj), _eddy2d(npt, dtype=torch.float64, device="cpu")
+    """The JAX model and the port on the reference's frozen
+    preconditioner (the port's ``refresh_on_rebuild=False``): the JAX
+    step keeps it across the eddy rebuild."""
+    return _eddy2d(npj), _eddy2d(npt, dtype=torch.float64, device="cpu",
+                                 refresh_on_rebuild=False)
 
 
 def test_eddy_rebuild_matches(eddy_pair):

@@ -70,7 +70,9 @@ REFRESH_BRANCHES = {"dense": {}, "iterative_l2": dict(coarse_dense_max=256)}
 def test_refresh_precond_matches(branch):
     kw = REFRESH_BRANCHES[branch]
     mj = _eddy3d(npj, **kw)
-    mt = _eddy3d(npt, dtype=torch.float64, device="cpu", **kw)
+    # the JAX multi_step keeps the preconditioner across its eddy
+    # rebuilds: the port's refresh_on_rebuild=False
+    mt = _eddy3d(npt, dtype=torch.float64, device="cpu", refresh_on_rebuild=False, **kw)
     assert (mt.saddle_coarse_dense, mt.saddle_coarse_l2) == (
         (True, False) if branch == "dense" else (False, True))
     # 30 steps (three eddy rebuilds) through multi_step in both packages
