@@ -7,7 +7,8 @@ Phases (any failed check raises, and the script exits non-zero):
 
   1. device: needs CUDA; prints the card's name and power limit.
   2. build: compiles the CUDA kernels from csrc/ (the element matvec,
-     the assembled block matvec, the streaming probes).
+     the assembled block matvec, the Chebyshev step, the streaming
+     probes).
   3. kernels vs plain: every kernel case of the h = 0.08 bowl3D model
      (each mode at each local size the step runs: the P2-P1 operator,
      the P2 velocity block and viscous smoother, the P1-P1 coarse
@@ -32,6 +33,13 @@ Phases (any failed check raises, and the script exits non-zero):
      atomics), and timed with a cold L2 beside K1 (K2 for the mass) on
      the same operator's element tensors and the CSR call
      (kernel_bench.measure_assembled).
+     The fused Chebyshev step (check_cheb; csrc/chebyshev_step.cu):
+     init and two steps on the model's fine velocity and pressure
+     blocks (the pressure an offset view), masked and unmasked, in f32
+     and f64, bit for bit equal to its plain version, one launch a
+     call, op by op and from a CUDA graph replayed on new inputs; the
+     model's pressure smoother equal to the unfused loop bit for bit,
+     its velocity smoother (K1's atomics) at the f32 bar.
   3c. edge cases: every phase-3 case with the cells in a shuffled order
      (the widest block dof lists) and with blocks of 12 or 20 cells (a
      ragged last block), against the plain versions at the phase-3
@@ -296,6 +304,7 @@ REPLACES = {"saddle_matvec": "nupgcm_tpu/ops/window.py:769",
             "stream_saddle": "tools/profile_matvec.py:174",
             "stream_probe": "tools/profile_stream.py:75"}
 SOURCES = {"saddle_matvec": "nupgcm_tpu_torch/csrc/element_matvec.cu",
+           "cheb_step": "nupgcm_tpu_torch/csrc/chebyshev_step.cu",
            "vblock_matvec": "nupgcm_tpu_torch/csrc/vertex_block_matvec.cu",
            "scalar_matvec": "nupgcm_tpu_torch/csrc/element_matvec.cu",
            "saddle_matvec[pinned]": "nupgcm_tpu_torch/csrc/element_matvec.cu",
@@ -382,7 +391,129 @@ def phase_kernels(model, K, card_name, tag="kernels", Kv_e=None):
                                             counter=counter_of(case)))
         top["max_abs_err"] = max(top["max_abs_err"], err)
         top["cases"].append(rec)
+    check_cheb(model, K, tag)
     return results
+
+
+def check_cheb(model, K, tag):
+    """The fused Chebyshev step (``kernels.ChebStep``,
+    csrc/chebyshev_step.cu) against its plain versions bit for bit, on
+    the model's fine velocity and pressure blocks of a Krylov vector (the
+    pressure block an offset view), with their masks and unmasked, in
+    f32 and f64: init, a first step and an in-place second step, each one
+    launch, op by op and then from a captured CUDA graph replayed on new
+    inputs.  Then the model's own smoothers through ``chebyshev`` against
+    the unfused loop: the pressure mass (vertex blocks, no atomics) bit
+    for bit, the velocity block (K1, atomics) at the f32 bar."""
+    import torch
+
+    from nupgcm_tpu_torch.solvers import preconditioners as pc
+
+    M, _ = model._make_inv_precond(model.ops)
+    n_u, n = model.fe.spaces.n_u, model.fe.n_inv
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    rand = lambda dt: torch.randn(n, generator=gen, device="cuda", dtype=torch.float64).to(dt)
+    # the recurrence's scalars for two steps at the pressure smoother's bounds
+    theta, delta = 0.625 * M.lmax_p, 0.375 * M.lmax_p
+    sigma1, rho, ab = theta / delta, delta / theta, []
+    for _ in range(2):
+        rho1 = 1.0 / (2.0 * sigma1 - rho)
+        ab.append((rho1 * rho, 2.0 * rho1 / delta))
+        rho = rho1
+    scale = 1.0 / theta
+    blocks = {"u": (slice(0, n_u), M.visc_op.free, M.visc_diag_inv),
+              "p": (slice(n_u, n), M.mp_op.free, M.mp_diag_inv)}
+
+    def plain(r, ys, dinv, free):
+        d, dm = K.cheb_init_plain(r, dinv, free, scale)
+        out = [(d, dm)]
+        z = d
+        for y, (a, b) in zip(ys, ab):
+            r, d, z, dm = K.cheb_step_plain(y, r, d, z, dinv, free, a, b)
+            out.append((r, d, z, dm))
+        return out
+
+    def fused(r, ys, dinv, free, each=None):
+        c = K.ChebStep(r, dinv, free, scale)
+        if each:
+            each(0, (c.d, c.dm))
+        for i, (y, (a, b)) in enumerate(zip(ys, ab)):
+            c.step(y, a, b)
+            if each:
+                each(i + 1, (c.r, c.d, c.z, c.dm))
+        return c.r, c.d, c.z, c.dm
+
+    for dt in (torch.float32, torch.float64):
+        for blk, (sl, free_m, dinv_m) in blocks.items():
+            for masked in (True, False):
+                what = f"[{tag}] cheb_step {blk} {str(dt)[6:]} {'masked' if masked else 'unmasked'}"
+                whole, ys = rand(dt), [rand(dt)[sl] for _ in ab]
+                r, dinv = whole[sl], dinv_m.to(dt)
+                free = free_m.to(dt) if masked else None
+                want, kept = plain(r, ys, dinv, free), whole.clone()
+
+                def each(i, got):
+                    n0 = each.n0 + i + 1
+                    check(K.launches["cheb_step"] == n0, f"{what}: call {i} launched "
+                          f"{K.launches['cheb_step'] - n0 + 1} kernels")
+                    check(all(torch.equal(g, w) for g, w in zip(got, want[i])),
+                          f"{what}: call {i} differs from the plain version")
+
+                each.n0 = K.launches["cheb_step"]
+                fused(r, ys, dinv, free, each)
+                torch.cuda.synchronize()
+                check(torch.equal(whole, kept), f"{what}: the residual was written")
+                # the same calls captured on zeroed inputs, replayed on these
+                s_whole, s_ys = torch.zeros_like(whole), [torch.zeros_like(y) for y in ys]
+                n0 = K.launches["cheb_step"]
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    out = fused(s_whole[sl], s_ys, dinv, free)
+                check(K.launches["cheb_step"] == n0 + 3, f"{what}: the capture launched "
+                      f"{K.launches['cheb_step'] - n0} kernels, not 3")
+                s_whole.copy_(whole)
+                for s_y, y in zip(s_ys, ys):
+                    s_y.copy_(y)
+                graph.replay()
+                torch.cuda.synchronize()
+                check(all(torch.equal(g, w) for g, w in zip(out, want[-1])),
+                      f"{what}: the graph's replay differs from the plain version")
+                check(torch.equal(s_whole, kept), f"{what}: the replay wrote the residual")
+                print(f"{what}: init and 2 steps equal plain bit for bit, op by op and "
+                      "from a graph", flush=True)
+                del graph
+    r = rand(model.dtype)
+    for blk, op, dinv, k, lo, hi in (
+            ("p", M.mp_op, M.mp_diag_inv, M.inner_iters_p, M.lmax_p / 4.0, M.lmax_p),
+            ("u", M.visc_op, M.visc_diag_inv, M.inner_iters_u, M.lmax_u / M.cond_ratio,
+             M.lmax_u)):
+        rb = r[blocks[blk][0]]
+        z = pc.chebyshev(op, dinv, rb, k, lo, hi)
+        z0 = unfused_chebyshev(op, dinv, rb, k, lo, hi)
+        torch.cuda.synchronize()
+        err, top = float((z - z0).abs().max()), float(z0.abs().max())
+        print(f"[{tag}] chebyshev {blk} (k = {k}) against the unfused loop: max|z - z0| = "
+              f"{err:.3e} of max|z0| {top:.3e}", flush=True)
+        check(torch.equal(z, z0) if blk == "p" else err <= BARS["float32"] * top,
+              f"[{tag}] chebyshev {blk}: the fused smoother differs from the unfused loop")
+
+
+def unfused_chebyshev(op, dinv, r, k, lmin, lmax):
+    """``solvers/preconditioners.chebyshev`` as it was written before its
+    updates were fused (one launch per operation, the mask in ``op``)."""
+    theta = 0.5 * (lmax + lmin)
+    delta = 0.5 * (lmax - lmin)
+    sigma1 = theta / delta
+    rho = 1.0 / sigma1
+    d = (1.0 / theta) * (dinv * r)
+    z = d
+    for _ in range(k - 1):
+        r = r - op(d)
+        rho1 = 1.0 / (2.0 * sigma1 - rho)
+        d = rho1 * rho * d + (2.0 * rho1 / delta) * (dinv * r)
+        z = z + d
+        rho = rho1
+    return z
 
 
 def case_name(case):
@@ -1455,6 +1586,7 @@ def phase_bowl(K, card_name):
     K.reset_counts()
     base = measure_l2.run("base", model=model, info=info, steps=BOWL_STEPS, log=log)
     launches = check_path(model, K, "11a")
+    check(launches["cheb_step"] > 0, "11a: the smoothers never launched the Chebyshev step")
     check(base["inv_iters"] < model.inv_opts["itmax"], "11a: the invert hit its cap")
     bowl_report("11a", model, base, card_name)
     K.reset_counts()
@@ -1769,7 +1901,7 @@ def main():
           f"({name_limit})", flush=True)
     print(f"[slice] launches per step by mode and local size "
           f"{ {k: v / 10 for k, v in K.shape_launches.items() if v} }", flush=True)
-    check(all(launches[k] > 0 for k in STEP_COUNTERS),
+    check(all(launches[k] > 0 for k in (*STEP_COUNTERS, "cheb_step")),
           f"a kernel of the path never launched: {launches}")
     check(all(n == 0 for n in plain.values()), f"a plain version ran on the card: {plain}")
     check_path(model, K, "slice")  # and K1 ran none of the assembled operators

@@ -118,6 +118,11 @@ def load():
         fn.restype = i
     lib.nupgcm_stream_probe_f32.argtypes = [vp] * 3 + [i] * 3 + [vp] * 9 + [i, vp, vp, ll, vp]
     lib.nupgcm_stream_probe_f32.restype = i
+    dbl = ctypes.c_double
+    lib.nupgcm_cheb_init.argtypes = [vp, vp, dbl, vp]
+    lib.nupgcm_cheb_init.restype = i
+    lib.nupgcm_cheb_step.argtypes = [vp, vp, dbl, dbl, vp]
+    lib.nupgcm_cheb_step.restype = i
     lib.nupgcm_error_string.argtypes = [i]
     lib.nupgcm_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -36,6 +36,17 @@ ctypes call that launches the kernel (which zeroes that next buffer).
 The module-level wrappers keep their signatures and prepare a launch
 for one call.
 
+A third kernel, in ``csrc/chebyshev_step.cu``, fuses the vector updates
+of one Chebyshev smoothing step (``solvers/preconditioners.chebyshev``)
+with the Dirichlet mask of a masked operator into one launch:
+``ChebStep`` runs a smoothing call's init (d = scale (dinv r) and the
+operator's next input d * free) and then each step after the
+operator's application y (y' = where(free, y, d), r = r - y',
+d = a d + b (dinv r), z = z + d, d * free again).  It rounds each
+operation as the unfused expressions do, so the kernel equals its plain
+versions (``cheb_init_plain``, ``cheb_step_plain``) bit for bit.  It
+replaces no TPU kernel (XLA fuses these updates on the TPU).
+
 Three measurement probes (``csrc/stream_probe.cu`` and the pinned
 instantiation of the block kernel; see those files for their design)
 run only in the tools of ``nupgcm_tpu_torch/tools``:
@@ -69,6 +80,7 @@ import ctypes
 
 import torch
 
+from ..utils.timing import count
 from . import blocks, build
 
 SADDLE_MODES = ("full", "full_pp", "uu", "up")
@@ -77,8 +89,9 @@ LANES = 128  # the TPU kernels' lane width: one grid block of cells
 VBLOCK_MODES = ("full_pp", "up", "uu", "scalar")
 launches = {**{f"saddle_{m}": 0 for m in SADDLE_MODES}, "scalar": 0,
             "saddle_full_pinned": 0, "stream_saddle": 0, "stream_probe": 0,
-            **{f"vblock_{m}": 0 for m in VBLOCK_MODES}}
-plain_calls = {"saddle": 0, "scalar": 0, "stream_saddle": 0, "stream_probe": 0, "vblock": 0}
+            **{f"vblock_{m}": 0 for m in VBLOCK_MODES}, "cheb_step": 0}
+plain_calls = {"saddle": 0, "scalar": 0, "stream_saddle": 0, "stream_probe": 0, "vblock": 0,
+               "cheb_step": 0}
 # launches per mode and local sizes, e.g. "saddle_uu[10,0]" (the P2
 # velocity block), "scalar[10]" or "vblock_up[10,4]" (the assembled
 # P2-P1 coupling: the local sizes of its row and column dof tables, so
@@ -167,6 +180,22 @@ def vblock_matvec_plain(vals, col, row, x, mode, n_rows):
     if mode != "full_pp":
         return y.reshape(-1)
     return torch.cat([y[:, :3].reshape(-1), y[:, 3]])
+
+
+def cheb_init_plain(r, dinv, free, scale):
+    """Plain version of ``ChebStep``'s init: (d, dm)."""
+    d = scale * (dinv * r)
+    return d, d if free is None else d * free
+
+
+def cheb_step_plain(y, r, d, z, dinv, free, a, b):
+    """Plain version of ``ChebStep.step``: new (r, d, z, dm)."""
+    if free is not None:
+        y = torch.where(free != 0, y, d)
+    r = r - y
+    d = a * d + b * (dinv * r)
+    z = z + d
+    return r, d, z, d if free is None else d * free
 
 
 def stream_probe_plain(parts, w0, idx=None):
@@ -669,3 +698,99 @@ def stream_probe(parts, w0, idx=None):
             out.data_ptr(), _ptr(chk), nb)
     launches["stream_probe"] += 1
     return out, chk
+
+
+# ----------------------------------------------------------------------
+# the Chebyshev smoothing step (csrc/chebyshev_step.cu)
+# ----------------------------------------------------------------------
+
+class _ChebParams(ctypes.Structure):
+    """Mirror of ``struct ChebLaunch`` in csrc/chebyshev_step.cu."""
+    _fields_ = [*((f, ctypes.c_void_p) for f in ("r_in", "r_out", "dinv", "free", "d", "z_in",
+                                                  "z_out", "dm")),
+                ("n", ctypes.c_longlong), ("f64", ctypes.c_int), ("device", ctypes.c_int)]
+
+
+def _check_vector(t, dtype, shape, index, what):
+    if (t.dtype is not dtype or t.shape != shape or t.get_device() != index
+            or not t.is_contiguous()):
+        raise ValueError(f"cheb_step: {what} must be a contiguous {dtype} vector of shape "
+                         f"{tuple(shape)} on cuda:{index}, got {t.dtype} {tuple(t.shape)} "
+                         f"on {t.device}")
+
+
+class ChebStep:
+    """The vector updates of one Chebyshev smoothing call
+    (``solvers/preconditioners.chebyshev``), one launch a step.
+
+    ``ChebStep(r, dinv, free, scale)`` is the first step (init):
+
+        d = scale (dinv r);  dm = d * free
+
+    ``dm`` is the operator's next input (d itself where ``free`` is None:
+    an unmasked operator).  ``step(y, a, b)``, after the operator's
+    application y = A dm:
+
+        y' = where(free != 0, y, d)   (y' = y where ``free`` is None)
+        r = r - y';  d = a d + b (dinv r);  z = z + d;  dm = d * free
+
+    ``z`` is the smoothed vector (d itself after init).  r is only read.
+    On a CUDA device init and each step launch the kernel once, on work
+    vectors that init allocates in one block and the steps update in
+    place; r, dinv and free are checked at init, y at each step.  On the
+    CPU each is the plain version (``cheb_init_plain``,
+    ``cheb_step_plain``: new tensors).  The object keeps no pointer
+    beyond its own call, so a CUDA graph can capture it whole."""
+
+    __slots__ = ("r", "d", "z", "dm", "dinv", "free", "_p", "_addr", "_lib", "_work")
+
+    def __init__(self, r, dinv, free, scale: float):
+        self.dinv, self.free, self._p = dinv, free, None
+        if not r.is_cuda:
+            _check(r.device.type == "cpu", f"no kernel for device {r.device}")
+            plain_calls["cheb_step"] += 1
+            count("cheb.plain")
+            self.d, self.dm = cheb_init_plain(r, dinv, free, scale)
+            self.r, self.z = r, self.d
+            return
+        dtype, index = r.dtype, r.get_device()
+        if dtype not in (torch.float32, torch.float64) or r.dim() != 1:
+            raise ValueError(f"cheb_step takes float32 or float64 vectors, got {dtype} of "
+                             f"shape {tuple(r.shape)}")
+        for t, what in ((r, "r"), (dinv, "dinv"), (free, "free")):
+            if t is not None:
+                _check_vector(t, dtype, r.shape, index, what)
+        # d, then the steps' r and z, then dm where the operator is masked
+        work = r.new_empty((3 if free is None else 4, r.shape[0])).unbind(0)
+        self.d, self.dm = work[0], work[0 if free is None else 3]
+        self.r, self.z, self._work = r, work[0], work
+        ptr = [t.data_ptr() for t in work]
+        p = self._p = _ChebParams(r.data_ptr(), ptr[1], dinv.data_ptr(), _ptr(free), ptr[0],
+                                  ptr[0], ptr[2], None if free is None else ptr[3],
+                                  r.shape[0], int(dtype == torch.float64), index)
+        self._addr, self._lib = ctypes.addressof(p), build.load()
+        self._launched(self._lib.nupgcm_cheb_init(self._addr, p.r_in, scale,
+                                                   _raw_stream(index)))
+
+    def _launched(self, err: int) -> None:
+        if err != 0:
+            raise RuntimeError(f"cheb_step launch failed: "
+                               f"{self._lib.nupgcm_error_string(err).decode()}")
+        launches["cheb_step"] += 1
+        count("cheb.fused")
+
+    def step(self, y, a: float, b: float) -> None:
+        """One step after the operator's application ``y`` = A ``dm``."""
+        p = self._p
+        if p is None:
+            plain_calls["cheb_step"] += 1
+            count("cheb.plain")
+            self.r, self.d, self.z, self.dm = cheb_step_plain(y, self.r, self.d, self.z,
+                                                              self.dinv, self.free, a, b)
+            return
+        _check_vector(y, self.d.dtype, self.d.shape, p.device, "y")
+        self._launched(self._lib.nupgcm_cheb_step(self._addr, y.data_ptr(), a, b,
+                                                   _raw_stream(p.device)))
+        if self.z is self.d:  # the first step read the caller's r and z = d
+            self.r, self.z = self._work[1], self._work[2]
+            p.r_in, p.z_in = p.r_out, p.z_out

@@ -16,6 +16,8 @@ from dataclasses import dataclass
 
 import torch
 
+from ..ops import kernels
+from ..ops.sparse import MaskedOperator
 from ..utils.timing import span
 from .cg import cg
 from .gmres import arnoldi, gmres
@@ -30,21 +32,23 @@ def chebyshev(op, dinv: torch.Tensor, r: torch.Tensor, k: int,
     The textbook SPD Chebyshev smoother (Saad, Iterative Methods,
     Alg. 12.1) on the Jacobi-scaled operator with eigenvalue bounds
     [lmin, lmax].  No dot products: every iteration is one matvec and
-    two vector updates, with no device read.
+    two vector updates, with no device read.  The updates of each step
+    are one launch (``kernels.ChebStep``); a ``MaskedOperator``'s mask
+    is folded into them, so a step applies its matrix alone.  r is
+    never written.
     """
     theta = 0.5 * (lmax + lmin)
     delta = 0.5 * (lmax - lmin)
     sigma1 = theta / delta
     rho = 1.0 / sigma1
-    d = (1.0 / theta) * (dinv * r)
-    z = d
+    free = op.free if isinstance(op, MaskedOperator) else None
+    apply = op if free is None else op.mat.matvec
+    c = kernels.ChebStep(r, dinv, free, 1.0 / theta)
     for _ in range(k - 1):
-        r = r - op(d)
         rho1 = 1.0 / (2.0 * sigma1 - rho)
-        d = rho1 * rho * d + (2.0 * rho1 / delta) * (dinv * r)
-        z = z + d
+        c.step(apply(c.dm), rho1 * rho, 2.0 * rho1 / delta)
         rho = rho1
-    return z
+    return c.z
 
 
 def power_lmax(op, dinv: torch.Tensor, n: int, iters: int = 30) -> torch.Tensor:
