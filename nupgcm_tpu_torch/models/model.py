@@ -38,8 +38,9 @@ block-triangular preconditioner applies the P2-P1 pressure coupling
 from its assembled blocks (P2 nodes x vertices), and every
 preconditioner the P1 pressure mass from its vertex blocks.  The model
 holds one assembled operator per element tensor it applies so
-(``_held``, and ``_sc_op`` for the coarse saddle), refilled in place
-wherever the tensor is written.
+(``_held``, and ``_sc_op`` for the coarse saddle), refilled when ``ops``
+is set and, after the build, by the one path that writes ``ops``, in
+place (``_put``).
 """
 
 from __future__ import annotations
@@ -222,11 +223,15 @@ class PGModel:
     ``False`` keeps the preconditioner frozen between the caller's
     refreshes, as the reference and the JAX package do.
 
-    On a CUDA device the inversion preconditioner with the ``inner_gmres``
-    smoother and dense coarse levels runs from two CUDA graphs, captured
-    once and again only where a tensor it reads is set anew
-    (``solvers/graphed.py``: the same arithmetic, with one device read an
-    application instead of eight).
+    The inversion's operators and preconditioner are built when ``ops`` is
+    set (the build, the refresh after an eddy rebuild, a caller's
+    ``model.ops = ...``) and by ``retune``; a solve builds nothing.  On a
+    CUDA device the preconditioner with the ``inner_gmres`` smoother and
+    dense coarse levels runs from two CUDA graphs (``solvers/graphed.py``:
+    the same arithmetic, with one device read an application instead of
+    eight), captured on its first application, and again only after
+    ``ops`` is set with another tensor or another host-taken number that
+    the application reads.
     """
 
     def __init__(
@@ -381,20 +386,44 @@ class PGModel:
 
     @ops.setter
     def ops(self, ops: dict):
-        # the assembled operators follow the dict's element tensors (a
-        # dict set from outside, a refresh's result)
+        # the held operators follow the dict's tensors (a dict set from
+        # outside, a refresh's result, values restored into its tensors),
+        # and the inversion is built once for them
         self._ops = ops
-        if hasattr(self, "_sc_op") and "sc_uu" in ops:
-            self._sc_op.fill(*(ops[k] for k in ("sc_uu", "sc_up", "sc_pu", "sc_pp")))
         self._refill(ops)
+        self._hold_inversion()
 
     def _refill(self, ops: dict, keys=None):
-        """Refill the held assembled operators (``self._held``, one per
-        element tensor of ``ops``) from ``ops``' tensors, those of
-        ``keys`` or all, in place."""
+        """Refill what the model holds from ``ops``' tensors, from those
+        of ``keys`` or all, in place: the assembled operators of
+        ``self._held`` (one per element tensor) and, from the four coarse
+        saddle blocks, ``self._sc_op``."""
         for k, op in self._held.items():
             if k in ops and (keys is None or k in keys):
                 op.fill(ops[k])
+        sc = ("sc_uu", "sc_up", "sc_pu", "sc_pp")
+        if (getattr(self, "_sc_op", None) is not None and all(k in ops for k in sc)
+                and (keys is None or any(k in keys for k in sc))):
+            self._sc_op.fill(*(ops[k] for k in sc))
+
+    def _put(self, ops: dict, **values):
+        """Write ``values`` into ``ops``, each into the tensor ``ops``
+        holds at its key where shape, dtype and device agree (a held or
+        captured operator reads it by address; a value that already is
+        that tensor, written through ``_chunked_cells(out=...)``, is
+        left as it is), else set there; then refill what the model holds
+        from those keys.  After the build, the only way the model writes
+        ``ops``."""
+        for k, v in values.items():
+            old = ops.get(k)
+            if old is v:
+                continue
+            if (torch.is_tensor(old) and old.shape == v.shape and old.dtype == v.dtype
+                    and old.device == v.device):
+                old.copy_(v)
+            else:
+                ops[k] = v
+        self._refill(ops, values)
 
     def _sync(self):
         """Wait for the work queued on a CUDA model's device (so that the
@@ -437,7 +466,7 @@ class PGModel:
                                                self.device)
         # assembled operators (ops/assembled.py), one per element tensor
         # of ``ops``: the pattern once per mesh, the blocks refilled from
-        # the tensors wherever they are written (``_refill``).  On the
+        # the tensors wherever they are written (``_put``).  On the
         # vertex pattern the P1 pressure mass (every preconditioner),
         # the P1 vector velocity operators of the coarse level (the
         # iterative saddle coarse level's uu block and visc surrogate,
@@ -600,6 +629,15 @@ class PGModel:
 
         return self._chunked_cells(build_, c["wq"], nu_q, c["f_q"], c["invJT"], out=out)
 
+    def _assemble_smoother(self, ops, nu_q):
+        """The velocity smoother's surrogate ``visc_e`` from the viscosity
+        ``nu_q`` (quadrature points), with its Jacobi diagonal and
+        spectral bound, into ``ops``."""
+        self._put(ops, visc_e=self._assemble_visc_elems(nu_q, out=ops.get("visc_e")))
+        visc_op = MaskedOperator(self._visc_operator(ops["visc_e"]), self.const["free_u"])
+        self._put(ops, visc_dinv=1.0 / visc_op.diagonal())
+        self._put(ops, lmax_u=power_lmax(visc_op, ops["visc_dinv"], self.fe.spaces.n_u))
+
     def _assemble_coarse(self, ops, nu_q=None):
         """Two-grid u-block coarse level: the P1-vertex (Galerkin)
         coarse viscous operator.  Because P1 c P2 is a nested inclusion,
@@ -623,12 +661,10 @@ class PGModel:
             return self._visc_elems(wq, nu_q, f_q, Gp3, c["phi_p"])
 
         if not self.coarse_dense:
-            out = ops.get("coarse_e")
-            ops["coarse_e"] = self._chunked_cells(build_, c["wq"], nu_q, c["f_q"],
-                                                  c["invJT"], out=out)
-            self._refill(ops, ("coarse_e",))
+            self._put(ops, coarse_e=self._chunked_cells(build_, c["wq"], nu_q, c["f_q"],
+                                                        c["invJT"], out=ops.get("coarse_e")))
             cop = MaskedOperator(self._coarse_operator("coarse_e"), c["tg_coarse_free"])
-            ops["coarse_dinv"] = 1.0 / cop.diagonal()
+            self._put(ops, coarse_dinv=1.0 / cop.diagonal())
             return
 
         elem = self._chunked_cells(build_, c["wq"], nu_q, c["f_q"], c["invJT"])
@@ -644,8 +680,7 @@ class PGModel:
         A = A.reshape(Nc, Nc)
         free = c["tg_coarse_free"].to(torch.float64)
         A = free[:, None] * A * free[None, :] + torch.diag(1.0 - free)
-        self._put(ops, "coarse_inv",
-                  torch.cholesky_inverse(torch.linalg.cholesky(A)).to(self.dtype))
+        self._put(ops, coarse_inv=torch.cholesky_inverse(torch.linalg.cholesky(A)).to(self.dtype))
 
     def _assemble_saddle_coarse(self, ops, nu_q=None):
         """P1-P1 COARSE SADDLE system (velocity AND pressure) -- the
@@ -668,7 +703,7 @@ class PGModel:
         """
         if self.saddle_coarse_dense:
             with build_span("saddle_coarse", self._build_s, self._sync):
-                self._put(ops, "saddle_coarse_inv", self._coarse_inverse(
+                self._put(ops, saddle_coarse_inv=self._coarse_inverse(
                     self._saddle_coarse_matrix(nu_q)).to(self.dtype))
         else:
             self._assemble_saddle_coarse_elems(ops, nu_q)
@@ -691,8 +726,9 @@ class PGModel:
     def _assemble_saddle_coarse_elems(self, ops, nu_q=None):
         """Element tensors of the BP-stabilized P1-P1 coarse saddle
         operator + the coarse visc smoothing surrogate (the scalable
-        coarse path).  A refresh rebuilds them into the tensors ``ops``
-        already holds."""
+        coarse path), with the pin, the surrogate's Jacobi diagonal and
+        spectral bound, and the aggregate level.  A refresh rebuilds
+        them into the tensors ``ops`` already holds."""
         c = self.const
         nu_q = c["nu_q"] if nu_q is None else nu_q
 
@@ -702,22 +738,20 @@ class PGModel:
 
         keys = ("sc_uu", "sc_up", "sc_pu", "sc_pp", "sc_visc_e")
         out = tuple(ops[k] for k in keys) if all(k in ops for k in keys) else None
-        ops.update(zip(keys, self._chunked_cells(
-            build_, c["wq"], nu_q, c["f_q"], c["invJT"], c["sc_h2"], out=out)))
+        self._put(ops, **dict(zip(keys, self._chunked_cells(
+            build_, c["wq"], nu_q, c["f_q"], c["invJT"], c["sc_h2"], out=out))))
 
         # rank-one constant-pressure pin (free-masked volume weights) +
         # spectral bound of the smoothing surrogate (for Chebyshev)
         nv = self.fe.spaces.p_space.ndof
         pw = self._sc_pin_weights() * c["free_inv"][self.fe.spaces.n_u:].to(torch.float64)
-        ops["sc_pin"] = torch.cat([pw.new_zeros(3 * nv),
-                                   pw / torch.linalg.vector_norm(pw)]).to(self.dtype)
-
-        self._sc_op.fill(*(ops[k] for k in keys[:4]))
-        self._refill(ops, ("sc_uu", "sc_visc_e"))
+        self._put(ops, sc_pin=torch.cat([pw.new_zeros(3 * nv),
+                                         pw / torch.linalg.vector_norm(pw)]).to(self.dtype))
         cmask = MaskedOperator(self._sc_op, self._coarse_free())
-        ops["sc_sigma"] = torch.mean(torch.abs(cmask.diagonal()))
+        self._put(ops, sc_sigma=torch.mean(torch.abs(cmask.diagonal())))
         cvisc = MaskedOperator(self._coarse_operator("sc_visc_e"), c["tg_coarse_free"])
-        ops["sc_lmax"] = power_lmax(cvisc, 1.0 / cvisc.diagonal(), 3 * nv)
+        self._put(ops, sc_visc_dinv=1.0 / cvisc.diagonal())
+        self._put(ops, sc_lmax=power_lmax(cvisc, ops["sc_visc_dinv"], 3 * nv))
 
         if self.saddle_coarse_l2:
             self._assemble_saddle_coarse_l2(ops, nu_q)
@@ -732,9 +766,8 @@ class PGModel:
         path: ``_aggregate_matrix`` inverted once in float64 on the
         model's device and cast to the working dtype."""
         with build_span("aggregate_level", self._build_s, self._sync):
-            ops["sc2_inv"] = self._coarse_inverse(
-                self._aggregate_matrix(ops, nu_q)).to(self.dtype)
-            ops["sc2_agg"] = self._sc2_tables()[0]
+            self._put(ops, sc2_inv=self._coarse_inverse(
+                self._aggregate_matrix(ops, nu_q)).to(self.dtype), sc2_agg=self._sc2_tables()[0])
 
     def _sc2_tables(self):
         """(agg, n_agg, dofmap) of the aggregate level, built once per
@@ -926,7 +959,7 @@ class PGModel:
         ops = {}
         ops["A_uu_e"], ops["A_up_e"], ops["A_pu_e"] = (
             self._assemble_inversion_elems(c["nu_q"]))
-        ops["visc_e"] = self._assemble_visc_elems(c["nu_q"])
+        self._assemble_smoother(ops, c["nu_q"])
 
         def build_small(wq, kh_q, kv_q, Gb3):
             return (
@@ -940,9 +973,9 @@ class PGModel:
             )
 
         (ops["B_e"], ops["M_e"], ops["Kh_e"], ops["Kv_e"], rd_e,
-         ops["Mp_e"], pv_e) = self._chunked_cells(
+         Mp_e, pv_e) = self._chunked_cells(
             build_small, c["wq"], c["kh_q"], c["kv_q"], c["Gb3"])
-        self._refill(ops, ("Mp_e",))
+        self._put(ops, Mp_e=Mp_e)
 
         # wind-stress rhs over the combined (u, p) vector
         wind = asm.elem_wind_rhs(c["wq_surf"], c["taux_q"], c["tauy_q"],
@@ -953,22 +986,16 @@ class PGModel:
         # pressure volume weights for the zero-mean constraint
         ops["p_volw"] = fe.vec_plan_p.assemble(pv_e)
 
-        visc_op = MaskedOperator(self._visc_operator(ops["visc_e"]), c["free_u"])
+        # the pressure mass's diagonal and spectral bound (Mp never
+        # changes; the smoother's are rebuilt with the viscosity)
         mp_op = MaskedOperator(self._mp_operator(), c["free_inv"][sp.n_u:])
-        # preconditioner diagonals and spectral bounds: the visc/Mp
-        # tensors never change in-step
-        ops["visc_dinv"] = 1.0 / visc_op.diagonal()
         ops["mp_dinv"] = 1.0 / mp_op.diagonal()
-        ops["lmax_u"] = power_lmax(visc_op, ops["visc_dinv"], sp.n_u)
         ops["lmax_p"] = power_lmax(mp_op, ops["mp_dinv"], sp.n_p)
 
         if self.twogrid:
             self._assemble_coarse(ops)
         if self.saddle_coarse:
             self._assemble_saddle_coarse(ops)
-        if "sc_visc_e" in ops:
-            cvisc = MaskedOperator(self._coarse_operator("sc_visc_e"), c["tg_coarse_free"])
-            ops["sc_visc_dinv"] = 1.0 / cvisc.diagonal()
 
         # surface buoyancy-flux rhs (static; zero under Dirichlet BC)
         if isinstance(fr.b_surface_bc, SurfaceFluxBC):
@@ -1017,14 +1044,15 @@ class PGModel:
         last write of ``ops["Mp_e"]``."""
         return self._held["Mp_e"]
 
-    def _make_inv_precond(self, ops):
-        """(M, flexible) for the inversion FGMRES."""
+    def _make_inv_precond(self, ops, A=None):
+        """(M, flexible) for the inversion FGMRES, built from ``ops``;
+        ``A`` the masked inversion operator where the caller holds one
+        (the saddle-coarse step's residuals apply it)."""
         c = self.const
         n_u = self.fe.spaces.n_u
         if self.precond_kind == "diag":
             scale = 1.0 / self.fe.h_median ** self.fe.mesh.tdim
             return (lambda r: r / scale), False
-        Amat = self._inv_matrix(ops)
         visc_op = MaskedOperator(self._visc_operator(ops["visc_e"]), c["free_u"])
         mp_op = MaskedOperator(self._mp_operator(), c["free_inv"][n_u:])
         # full (nonsymmetric) velocity block for the inner_gmres method
@@ -1060,7 +1088,8 @@ class PGModel:
         saddle_coarse = None
         outer_op = None
         if "saddle_coarse_inv" in ops or "sc_uu" in ops:
-            outer_op = MaskedOperator(Amat, c["free_inv"])
+            outer_op = A if A is not None else MaskedOperator(self._inv_matrix(ops),
+                                                              c["free_inv"])
             if "saddle_coarse_inv" in ops:
                 cinv = ops["saddle_coarse_inv"]
                 coarse_solve = lambda rc: cinv @ rc
@@ -1095,11 +1124,15 @@ class PGModel:
         )
         return M, True
 
-    @staticmethod
-    def _dense_levels(ops, M) -> bool:
-        """Whether each coarse level of the block preconditioner ``M`` is
-        applied from a dense inverse (no inner iterative solve)."""
-        return ((M.saddle_coarse is None or "saddle_coarse_inv" in ops)
+    def _captures(self, ops, M) -> bool:
+        """Whether the inversion runs ``M``, built from ``ops``, from CUDA
+        graphs (``solvers/graphed.py``): on a CUDA device, the block
+        preconditioner with the ``inner_gmres`` smoother on one device (no
+        reduction hook) and every coarse level a dense inverse (an
+        iterative coarse solve reads the device inside an application)."""
+        return (self.device.type == "cuda" and isinstance(M, BlockStokesPrecond)
+                and M.method == "inner_gmres" and M.reduce is None
+                and (M.saddle_coarse is None or "saddle_coarse_inv" in ops)
                 and (M.coarse is None or "coarse_inv" in ops))
 
     def _precond_key(self, ops, M) -> tuple:
@@ -1116,41 +1149,35 @@ class PGModel:
                 (M.lmax_u, M.cond_ratio) if M.coarse is not None else None,
                 *sorted((k, t.data_ptr()) for k, t in ts))
 
-    def _graphed_precond(self, ops, M):
-        """The captured application of ``M``: the model's last one where
-        the key is unchanged (the rebuilds write every tensor in place,
-        ``_put``), else ``M`` captured anew."""
-        key = self._precond_key(ops, M)
-        if self._graphed is None or self._graphed[0] != key:
-            self._graphed = (key, graphed.GraphedPrecond(M))
-        return self._graphed[1]
-
-    @staticmethod
-    def _put(ops, key: str, value: torch.Tensor):
-        """``ops[key] = value``, written into the tensor ``ops`` holds there
-        where shape, dtype and device agree: a captured preconditioner
-        reads it by address."""
-        old = ops.get(key)
-        if (torch.is_tensor(old) and old.shape == value.shape and old.dtype == value.dtype
-                and old.device == value.device):
-            old.copy_(value)
-        else:
-            ops[key] = value
+    def _hold_inversion(self):
+        """Build what every solve applies, from ``self.ops``: the masked
+        inversion operator and (M, flexible) (``_make_inv_precond``, which
+        reads the Chebyshev bounds on the host here).  Where ``_captures``
+        says so, M runs from CUDA graphs: the model's last captured M is
+        kept while the new one's key (``_precond_key``) is the same, so a
+        dict set again with the same tensors (after a rebuild, a refresh
+        or a restore of its values) captures nothing anew."""
+        with span("invert.precond_setup"):
+            ops = self._ops
+            A = MaskedOperator(self._inv_matrix(ops), self.const["free_inv"])
+            M, flexible = self._make_inv_precond(ops, A)
+            if self._captures(ops, M):
+                key = self._precond_key(ops, M)
+                if self._graphed is None or self._graphed[0] != key:
+                    self._graphed = (key, graphed.GraphedPrecond(M))
+                M = self._graphed[1]
+            self._inv = (A, M, flexible)
 
     def _solve_saddle(self, ops, y_full, x0):
         """FGMRES on A x = y over free dofs (Dirichlet dofs take their
         BC values), then the zero-mean pressure projection (reference:
-        Gridap :zeromean constrained space, src/spaces.jl:45)."""
+        Gridap :zeromean constrained space, src/spaces.jl:45).  ``ops`` is
+        the model's own: the operator and preconditioner built when it
+        was set are applied."""
         c = self.const
-        Amat = self._inv_matrix(ops)
-        A = MaskedOperator(Amat, c["free_inv"])
+        A, M, flexible = self._inv
         xd = c["xdiri_inv"] * (1.0 - c["free_inv"])
-        y = torch.where(A.free_bool, y_full - Amat.matvec(xd), c["xdiri_inv"])
-        with span("invert.precond_setup"):
-            M, flexible = self._make_inv_precond(ops)
-            if (self.device.type == "cuda" and graphed.eligible(M)
-                    and self._dense_levels(ops, M)):
-                M = self._graphed_precond(ops, M)
+        y = torch.where(A.free_bool, y_full - A.mat.matvec(xd), c["xdiri_inv"])
         with span("invert.fgmres"):
             x, stats = gmres(A, y, x0, M=M, flexible=flexible, name="fgmres", **self.inv_opts)
         n_u = self.fe.spaces.n_u
@@ -1278,9 +1305,10 @@ class PGModel:
         With ``refresh_on_rebuild`` the step does this after each of
         its eddy rebuilds; ``run(n_precond_refresh=...)`` calls it on a
         cadence besides (the only refresh with ``refresh_on_rebuild``
-        off).  Call between steps.  Every element tensor, diagonal and
-        dense inverse is rebuilt in place, so the returned dict shares
-        them with ``ops`` (one copy in memory)."""
+        off).  Call between steps, and set the result as the model's
+        ``ops``: that builds the inversion's preconditioner from it.
+        Every tensor is rebuilt in place (``_put``), so the returned dict
+        holds the same tensors as ``ops`` (one copy in memory)."""
         if not self.forcings.eddy_param.is_on:
             return ops
         with span("refresh"):
@@ -1294,48 +1322,38 @@ class PGModel:
         spectral bound, the two-grid coarse level (its element tensors
         and diagonal, or its dense inverse), the saddle-coarse tensors
         with their diagonal, pin, bound and aggregate-level inverse (or
-        the dense coarse inverse).  Every shape is kept.  (The JAX
+        the dense coarse inverse).  Every shape is kept, and every
+        tensor's address: all is written through ``_put``.  (The JAX
         package's two-grid refresh reads ``coarse_e`` on the dense
         branch too, which never sets it, and raises ``KeyError``; here
         the dense branch rebuilds ``coarse_inv``.)
 
         Memory: the element tensors (``visc_e``, ``coarse_e``, ``sc_*``)
         are rebuilt chunk by chunk INTO the tensors ``ops`` holds, so
-        peak device memory holds one copy; the smoother's diagonal and
-        bound and the dense inverses are written into the tensors ``ops``
-        holds too (``_put``: a captured preconditioner reads them by
-        address); the iterative levels' small tensors and the aggregate
-        inverse are new.  A caller that keeps the old values passes a
-        copy of them."""
+        peak device memory holds one copy; every other tensor is computed
+        anew and copied into the one ``ops`` holds.  A caller that keeps
+        the old values passes a copy of them."""
         count("precond.refresh")
-        c, sp = self.const, self.fe.spaces
-        self._assemble_visc_elems(nu_q, out=ops["visc_e"])
-        visc_op = MaskedOperator(self._visc_operator(ops["visc_e"]), c["free_u"])
-        self._put(ops, "visc_dinv", 1.0 / visc_op.diagonal())
-        self._put(ops, "lmax_u", power_lmax(visc_op, ops["visc_dinv"], sp.n_u))
+        self._assemble_smoother(ops, nu_q)
         if self.twogrid:
             self._assemble_coarse(ops, nu_q)
         if self.saddle_coarse:
             self._assemble_saddle_coarse(ops, nu_q)
-            if "sc_visc_e" in ops:
-                cvisc = MaskedOperator(self._coarse_operator("sc_visc_e"),
-                                       c["tg_coarse_free"])
-                ops["sc_visc_dinv"] = 1.0 / cvisc.diagonal()
         return ops
 
     def _eddy_rebuild(self, ops, state: State):
         """Eddy-viscosity inversion-matrix rebuild (reference
         src/model.jl:160-170), written into ``ops``' own inversion
-        blocks (one copy in memory), with the assembled P2-P1 coupling
-        refilled from them.  The preconditioner is left to the caller
+        blocks (one copy in memory, ``_put``), with the assembled P2-P1
+        coupling refilled from them.  The preconditioner is left to the caller
         (``_rebuild_precond``).  Returns the viscosity at the quadrature
         points."""
         with span("closures"):
             count("closures.rebuild")
             nu_q = self.forcings.eddy_param.nu(self.const["f_eddy_q"], self._abz(state.b))
-            self._assemble_inversion_elems(nu_q,
-                                           out=(ops["A_uu_e"], ops["A_up_e"], ops["A_pu_e"]))
-            self._refill(ops, ("A_up_e",))
+            keys = ("A_uu_e", "A_up_e", "A_pu_e")
+            self._put(ops, **dict(zip(keys, self._assemble_inversion_elems(
+                nu_q, out=tuple(ops[k] for k in keys)))))
         return nu_q
 
     # ------------------------------------------------------------------
@@ -1348,8 +1366,8 @@ class PGModel:
         eddy closure on, every 10th step rebuilds the inversion blocks
         of ``self.ops`` from the new buoyancy and, with
         ``refresh_on_rebuild``, the preconditioner from the same
-        viscosity (a new dict set as ``self.ops``, its element tensors
-        written in place).  ``aux`` also holds ``REBUILD_KEYS``:
+        viscosity, written into the tensors of ``self.ops`` and set as
+        ``self.ops`` again, which builds the preconditioner from them.  ``aux`` also holds ``REBUILD_KEYS``:
         ``rebuilt`` (1.0 on such a step) and ``rebuild_s``, the host
         seconds of both rebuilds between two device synchronises (0.0
         on every other step)."""
@@ -1370,7 +1388,7 @@ class PGModel:
                 nu_q = self._eddy_rebuild(self.ops, new_state)
                 if self.refresh_on_rebuild:
                     with span("refresh"):
-                        self.ops = self._rebuild_precond(dict(self.ops), nu_q)
+                        self.ops = self._rebuild_precond(self.ops, nu_q)
                 self._sync()
                 rebuilt, rebuild_s = 1.0, time.perf_counter() - t0
             with span("step.aux"):
@@ -1425,10 +1443,10 @@ class PGModel:
         sets the FGMRES cap to 25 restart cycles.
 
         The JAX model rebuilds its jitted closures here.  This port
-        builds the inversion preconditioner inside every solve
-        (``_make_inv_precond``, ``_saddle_coarse_solver``) from these
-        attributes, so setting them is all a retune does: ``self.ops``
-        is never touched and nothing is rebuilt."""
+        rebuilds the inversion's preconditioner from ``self.ops`` with the
+        new budgets (``_hold_inversion``, as when ``ops`` is set; a new
+        inner budget makes a captured preconditioner capture anew).  No
+        operator is re-assembled and ``self.ops`` is not touched."""
         if saddle_coarse_inner is not None:
             self.saddle_coarse_inner = saddle_coarse_inner
         iu, ip = self.inner_iters
@@ -1447,6 +1465,7 @@ class PGModel:
         for k, v in (("rtol", evo_rtol), ("atol", evo_atol)):
             if v is not None:
                 self.evo_opts[k] = v
+        self._hold_inversion()
         return self
 
     def rest_state(self) -> State:

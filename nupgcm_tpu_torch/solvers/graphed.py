@@ -20,9 +20,11 @@ Each half is captured once, on its first application (B once per j:
 tolerance, so j is m almost always), and replayed from then on.  A
 replay reads each tensor at the address it had at capture, with the
 values it holds then, and repeats the numbers the capture took on the
-host (the Chebyshev bounds): the model keeps one ``GraphedPrecond``
-while those stay (``PGModel._graphed_precond``; its rebuilds write every
-tensor in place).  Each capture counts ``precond.capture``.
+host (the Chebyshev bounds).  The model decides what it captures
+(``PGModel._captures``) when its ``ops`` is set, and keeps one
+``GraphedPrecond`` while those addresses and numbers stay
+(``PGModel._hold_inversion``; its rebuilds write every tensor in place,
+``PGModel._put``).  Each capture counts ``precond.capture``.
 ``capture=False`` runs the same halves without graphs (the CPU, tests).
 """
 
@@ -39,14 +41,6 @@ from .preconditioners import INNER_RTOL, BlockStokesPrecond
 
 _STREAMS = {}  # device index -> the side stream every capture runs on
 _WARM = set()  # device indices whose side stream has run an application
-
-
-def eligible(pc) -> bool:
-    """Whether ``pc`` is a block preconditioner with the ``inner_gmres``
-    smoother on one device (no reduction hook).  Its application can then
-    be captured where every coarse level is dense too (the caller's
-    test: an iterative coarse solve reads the device)."""
-    return isinstance(pc, BlockStokesPrecond) and pc.method == "inner_gmres" and pc.reduce is None
 
 
 def _stream(index: int) -> torch.cuda.Stream:
@@ -100,8 +94,9 @@ class _Half:
 
 
 class GraphedPrecond:
-    """``pc(r)`` for a ``BlockStokesPrecond`` with ``eligible`` true, from
-    the two halves above.  Returns a new tensor, as ``pc`` does."""
+    """``pc(r)`` for a ``BlockStokesPrecond`` with the ``inner_gmres``
+    smoother, from the two halves above.  Returns a new tensor, as ``pc``
+    does."""
 
     def __init__(self, pc: BlockStokesPrecond, capture: bool = True):
         self.pc, self.m = pc, pc.inner_iters_u

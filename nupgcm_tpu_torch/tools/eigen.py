@@ -57,8 +57,11 @@ def inversion_spectrum(model, k: int = 6, which: str = "LM", sigma=None):
 def preconditioned_inversion_spectrum(model, k: int = 6):
     """Eigenvalues of M^-1 A (block-Stokes preconditioned saddle
     operator) -- the quantity that controls GMRES convergence."""
-    A = MaskedOperator(model._inv_matrix(model.ops), model.const["free_inv"])
-    M, _ = model._make_inv_precond(model.ops)
+    # what the solves apply, built when ``model.ops`` was set; a captured
+    # preconditioner's own, applied whole (a capture here would leave
+    # the caller's matmul precision in the graph the steps replay)
+    A, M, _ = model._inv
+    M = getattr(M, "pc", M)
     n = model.fe.n_inv
     vals = spla.eigs(_as_linop(model, lambda v: M(A(v)), n), k=k, which="LM", tol=1e-6,
                      return_eigenvectors=False)

@@ -19,8 +19,10 @@ has settled and a step costs a fraction as much at either k:
                the coarse P1 vector velocity block's ``matvec`` (its
                viscous smoother's costs the same), the P2-P1 pressure
                coupling's (once an outer FGMRES iteration), the P1
-               pressure mass's, and the inversion preconditioner's
-               set-up (``_make_inv_precond``, once a solve)
+               pressure mass's, and the build of the inversion's
+               operators and preconditioner that setting ``ops`` makes
+               (``_hold_inversion``; in a tree without it, the
+               per-solve ``_make_inv_precond``)
   profile      a ``cProfile`` of 3 steps: the functions with the most
                own time, each with its calls per step, and the step's
                total
@@ -156,7 +158,8 @@ def run(windows=5, log=print):
                  "coarse_uu_matvec_us": host_us(lambda: vel.matvec(xu)),
                  "coupling_matvec_us": host_us(lambda: up(xpf)),
                  "mass_matvec_us": host_us(lambda: mp(xpf)),
-                 "precond_setup_us": host_us(lambda: model._make_inv_precond(model.ops), 200)}
+                 "precond_build_at_set_us": host_us(getattr(
+                     model, "_hold_inversion", lambda: model._make_inv_precond(model.ops)), 200)}
         rows, prof_s = profile_steps(model, st0)
         rec = dict(walls_s_3=walls, inv_iters=its[:3],
                    median_ms_per_step=1e3 * statistics.median(walls) / 3,
@@ -170,8 +173,8 @@ def run(windows=5, log=print):
             f"{costs['coarse_matvec_us']:.1f}, up_matvec {costs['coarse_up_matvec_us']:.1f}, "
             f"velocity block {costs['coarse_uu_matvec_us']:.1f}, P2-P1 coupling "
             f"{costs['coupling_matvec_us']:.1f}, P1 mass {costs['mass_matvec_us']:.1f}, "
-            f"preconditioner set-up "
-            f"{costs['precond_setup_us']:.1f}; cProfile "
+            f"preconditioner build at set "
+            f"{costs['precond_build_at_set_us']:.1f}; cProfile "
             f"{rec['profiled_ms_per_step']:.1f} ms a step ({out['card']})")
         for r in rows[:12]:
             log(f"    {r['own_ms']:8.2f} ms own {r['cum_ms']:8.2f} cum {r['calls']:8.1f} calls  "

@@ -11,14 +11,17 @@ bit.
     two-grid with a dense coarse level;
   * steps of a model whose solves take the split application against
     the model's own;
-  * which preconditioners the model captures, and when it captures anew.
+  * which preconditioners the model captures (``PGModel._captures``),
+    and when setting ``ops`` makes it capture anew.
 """
 
 import dataclasses
+import types
 
 import pytest
 import torch
 
+from nupgcm_tpu_torch.models.model import PGModel
 from nupgcm_tpu_torch.solvers import graphed
 from nupgcm_tpu_torch.solvers.gmres import arnoldi, gmres, lsq
 
@@ -66,8 +69,32 @@ def test_split_cycle_equals_gmres(case, dtype):
 
 
 def _precond(model):
-    M, _ = model._make_inv_precond(model.ops)
-    return M
+    """The preconditioner the model's solves apply, built when its ``ops``
+    was set."""
+    return model._inv[1]
+
+
+_CAPTURES = PGModel._captures
+
+
+def _cuda_decision(model, M):
+    """``model._captures`` as a CUDA model of the same configuration
+    decides it (the predicate reads the device from ``model.device``)."""
+    return _CAPTURES(types.SimpleNamespace(device=torch.device("cuda")), model.ops, M)
+
+
+class _Uncaptured(graphed.GraphedPrecond):
+    """The split halves run without graphs."""
+
+    def __init__(self, pc):
+        super().__init__(pc, capture=False)
+
+
+def _as_on_cuda(monkeypatch):
+    """From here on, CPU models decide capture as CUDA models do, and run
+    what they would capture as the split halves without graphs."""
+    monkeypatch.setattr(PGModel, "_captures", lambda self, ops, M: _cuda_decision(self, M))
+    monkeypatch.setattr(graphed, "GraphedPrecond", _Uncaptured)
 
 
 @pytest.fixture(scope="module")
@@ -83,7 +110,7 @@ def _residuals(model, k=3, seed=5):
 
 def test_split_application_equals_whole(full_model):
     M = _precond(full_model)
-    assert graphed.eligible(M) and full_model._dense_levels(full_model.ops, M)
+    assert _cuda_decision(full_model, M)
     G = graphed.GraphedPrecond(M, capture=False)
     for r in _residuals(full_model):
         assert torch.equal(G(r), M(r))
@@ -93,23 +120,21 @@ def test_split_application_with_dense_twogrid():
     m = _full(True, h=0.35, saddle_coarse=False, twogrid=True)
     M = _precond(m)
     assert M.coarse is not None and M.saddle_coarse is None and "coarse_inv" in m.ops
+    assert _cuda_decision(m, M)
     G = graphed.GraphedPrecond(M, capture=False)
     for r in _residuals(m, 2):
         assert torch.equal(G(r), M(r))
 
 
-def test_steps_with_split_application_equal_the_model(full_model):
+def test_steps_with_split_application_equal_the_model(monkeypatch):
     """Four steps through the step-10 eddy rebuild, the preconditioner
-    rebuilt with it, the solves taking the split application."""
+    rebuilt with it, the solves taking the split application where a CUDA
+    model would capture it."""
     plain = _full(True)
+    _as_on_cuda(monkeypatch)
     split = _full(True)
-    make = split._make_inv_precond
-
-    def make_split(ops):
-        M, flexible = make(ops)
-        return graphed.GraphedPrecond(M, capture=False), flexible
-
-    split._make_inv_precond = make_split
+    assert isinstance(_precond(split), graphed.GraphedPrecond)
+    assert not isinstance(_precond(plain), graphed.GraphedPrecond)
     a = b = _at_step(plain, 8)
     for _ in range(4):
         a, aux_a = plain.step(a)
@@ -121,38 +146,52 @@ def test_steps_with_split_application_equal_the_model(full_model):
 
 
 def test_which_preconditioners_are_captured(full_model):
-    """inner_gmres with dense levels only: not the Chebyshev smoother,
-    nor an iterative coarse level, nor the diagonal preconditioner."""
+    """On a CUDA device, inner_gmres with dense levels only: not the
+    Chebyshev smoother, nor a reduction hook, nor an iterative coarse
+    level, nor the diagonal preconditioner; on the CPU nothing."""
     M = _precond(full_model)
-    assert graphed.eligible(M)
-    assert not graphed.eligible(dataclasses.replace(M, method="chebyshev"))
-    assert not graphed.eligible(dataclasses.replace(M, reduce=lambda v: v))
+    assert _cuda_decision(full_model, M)
+    assert not full_model._captures(full_model.ops, M)
+    assert not _cuda_decision(full_model, dataclasses.replace(M, method="chebyshev"))
+    assert not _cuda_decision(full_model, dataclasses.replace(M, reduce=lambda v: v))
     iterative = _full(True, h=0.35, coarse_dense_max=64)
     M = _precond(iterative)
-    assert graphed.eligible(M) and not iterative._dense_levels(iterative.ops, M)
+    assert M.method == "inner_gmres" and not _cuda_decision(iterative, M)
     diag = _full(True, h=0.35, preconditioner="diag")
-    assert not graphed.eligible(_precond(diag))
+    assert not _cuda_decision(diag, _precond(diag))
 
 
-def test_captured_preconditioner_outlives_rebuilds_and_refreshes():
-    """The eddy rebuild and ``refresh_precond`` write every tensor of
-    ``ops`` in place, so the key of a captured preconditioner (addresses
-    and the bounds it took on the host) holds through both, and the model
-    keeps one ``GraphedPrecond``; a tensor set anew, or another bound,
-    makes a new one."""
-    m = _full(True, h=0.35)
+def _addresses(ops):
+    return {k: v.data_ptr() for k, v in ops.items() if torch.is_tensor(v)}
+
+
+@pytest.mark.parametrize("branch", ["dense", "iterative"])
+def test_captured_preconditioner_outlives_rebuilds_and_refreshes(branch, monkeypatch):
+    """The eddy rebuild, the preconditioner's rebuild after it and
+    ``refresh_precond`` write every tensor of ``ops`` in place, so no
+    address in ``ops`` changes on either branch.  On the dense branch the
+    key of the captured preconditioner (those addresses and the bounds it
+    took on the host) holds through both and through a restore of the
+    saved dict, so setting ``ops`` keeps one ``GraphedPrecond``; a tensor
+    set anew, or another bound, makes a new one."""
+    _as_on_cuda(monkeypatch)
+    m = _full(True, h=0.35, **({} if branch == "dense" else dict(coarse_dense_max=64)))
     st = _at_step(m, 5)
-    G = m._graphed_precond(m.ops, _precond(m))
-    ptrs = {k: v.data_ptr() for k, v in m.ops.items() if torch.is_tensor(v)}
+    saved, G = dict(m.ops), _precond(m)
+    ptrs = _addresses(m.ops)
     for _ in range(5):                      # steps 6-10: a rebuild after step 10
         st, aux = m.step(st)
     assert aux["rebuilt"] == 1.0
     m.ops = m.refresh_precond(m.ops, st)
-    assert {k: v.data_ptr() for k, v in m.ops.items() if torch.is_tensor(v)} == ptrs
-    M = _precond(m)
-    assert m._graphed_precond(m.ops, M) is G
+    assert _addresses(m.ops) == ptrs
+    m.ops = dict(saved)
+    assert isinstance(G, graphed.GraphedPrecond) == (branch == "dense")
+    if branch == "iterative":
+        return
+    assert _precond(m) is G
     m.ops = dict(m.ops, saddle_coarse_inv=m.ops["saddle_coarse_inv"].clone())
-    G2 = m._graphed_precond(m.ops, _precond(m))
+    G2 = _precond(m)
     assert G2 is not G
-    assert m._graphed_precond(m.ops, dataclasses.replace(M, lmax_p=2 * M.lmax_p)) is not G2
-
+    m.ops["lmax_p"].mul_(2.0)               # the same tensor, another bound
+    m.ops = m.ops
+    assert _precond(m) is not G2

@@ -115,7 +115,11 @@ def test_retune_budgets_and_multi_step_of_zero(small):
         m.retune()  # None keeps every budget
         assert m.inner_iters == (3, 4) and m.inv_opts["m"] == 10
     finally:
-        m.inv_opts, m.evo_opts, m.inner_iters, m.cond_ratio = opts
+        inv, evo, (iu, ip), ratio = opts
+        m.retune(inner_iters_u=iu, inner_iters_p=ip, cond_ratio=ratio, inv_rtol=inv["rtol"],
+                 inv_atol=inv["atol"], inv_memory=inv["m"], evo_rtol=evo["rtol"],
+                 evo_atol=evo["atol"])
+    assert (m.inv_opts, m.evo_opts, m.inner_iters, m.cond_ratio) == opts
     st = m.rest_state()
     st2, auxs = m.multi_step(st, 0)
     assert st2 is st and all(auxs[k].shape == (0,) for k in AUX_KEYS)
